@@ -20,16 +20,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      gpu-wave executor then stage 2, and through the native executor; every
      pair's MatchedRead and the called event sets must be equal, and every
      kernel must have been launched by the gpu-wave run;
-  5. the port's CLI (--index, then --device gpu-wave and --device native)
-     on a small synthetic dataset: circ_report and mapping.pam byte-equal.
+  5. the gpu-chain executor (lookup + dense chain DP on the card) on the
+     same reads: equal to native pair for pair and event for event;
+  6. the main path, the gpu-full executor (the fused device_full_step on
+     the card, deferred reads replayed on the host) on the same reads:
+     equal to native, with the xdrop, one_side and edit_end kernels each
+     launched on that run; reported: pairs/s, reads deferred and their
+     causes, ms per fused step (CUDA events) and the device-busy share and
+     per-stage device time of one torch.profiler run of the map;
+  7. one device_full_step on the first 256 pairs on the card (kernels) and
+     on the CPU (plain versions) with the same statics: the raw int32
+     [B, MRF + 1] blobs bit-equal;
+  8. the port's CLI (--index, then --device gpu-wave, gpu-chain, gpu-full
+     and native) on a small synthetic dataset: circ_report and mapping.pam
+     byte-equal.
 
 The port shares the reference package's host-only modules (simulator, index
 build, annotation, extension generators, C++ engines); nothing of JAX is
 imported, and the run checks that at the end.  The last stdout line is
 {"ok": true, "device": {...}}; the line before it carries the card's name
-and power limit, and the one before that the per-kernel JSON.
+and power limit, and the one before that the per-kernel JSON (launches of
+edit_sc from the gpu-wave run, of the other three from the gpu-full run).
 """
 
+import copy
 import json
 import os
 import subprocess
@@ -40,6 +54,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED_GENOME, SEED_READS = 20260817, 20260818
 KERNEL_SOURCE = "circminer_tpu_torch/csrc/align_kernels.cu"
+FULL_KERNELS = ("xdrop", "one_side", "edit_end")   # on the gpu-full path
 REPLACES = {
     "xdrop": "circminer_tpu/ops/pallas_align.py:406",      # _xdrop_kernel
     "edit_sc": "circminer_tpu/ops/pallas_align.py:182",    # _edit_sc_kernel
@@ -365,8 +380,169 @@ def phase_slice(cfg, gi, db, reads, truth, device, batch=4096):
     return launches, wave, native
 
 
+def check_equal_to_native(tag, run, native):
+    diff = [i for i, (a, b) in enumerate(zip(run["keys"], native["keys"]))
+            if a != b]
+    check(not diff, f"{tag} differs from native on {len(diff)} pairs, "
+          f"first {diff[:3]}: {[run['keys'][i] for i in diff[:3]]} vs "
+          f"{[native['keys'][i] for i in diff[:3]]}")
+    check(run["events"] == native["events"],
+          f"called events differ: {tag} {len(run['events'])}, native "
+          f"{len(native['events'])}")
+    n = run["n"]
+    log(f"[{tag}] {n} pairs, map {run['map_s']:.3f} s "
+        f"({n / run['map_s']:.1f} pairs/s), map+call "
+        f"{run['map_s'] + run['circ_s']:.3f} s "
+        f"({n / (run['map_s'] + run['circ_s']):.1f} pairs/s); equal to "
+        f"native on all {n} pairs and {len(run['events'])} events")
+
+
+def phase_chain(cfg, gi, db, reads, native, device, batch=4096):
+    chain = run_slice(cfg, gi, db, reads, "device-chain", "native", device,
+                      batch)
+    check_equal_to_native("gpu-chain", chain, native)
+    return chain
+
+
+def full_step_args(pipe, pairs, device, batch):
+    """The fused step's inputs for one batch of ``batch`` pairs, as the
+    pipeline makes them (rows padded to 4 * batch, default MatchedRead
+    state)."""
+    import numpy as np
+    import torch
+    from circminer_tpu.ops.filter_native import NativeFilter
+    from circminer_tpu.pipeline.types import MatchedRead
+    from circminer_tpu_torch.pipeline.device_pipeline import encode_pairs
+    cfg = pipe.cfg
+    rows = 4 * batch
+    seqs = np.zeros((rows, cfg.max_read_len), np.int8)
+    lens = np.zeros(rows, np.int32)
+    s, ln = encode_pairs(pairs, cfg.max_read_len)
+    seqs[:len(s)], lens[:len(ln)] = s, ln
+    row = NativeFilter.mr_to_state(MatchedRead.default(cfg.max_ed),
+                                   pipe.filters[0].chr_names)
+    mr_in = np.tile(row, (rows // 4, 1)).astype(np.int32)
+    return [torch.from_numpy(a).to(device) for a in (seqs, lens, mr_in)]
+
+
+def run_full_step(pipe, st, args, statics):
+    from circminer_tpu_torch.ops.device_full import device_full_step
+    return device_full_step(*args, st.entry_hv, st.entry_checksum,
+                            st.entry_pos, st.genome, st.anno, st.fanno,
+                            st.entry_prefix, contig_num=0,
+                            prefix_shift=st.prefix_shift,
+                            prefix_iters=st.prefix_iters, **statics)
+
+
+def profile_map(pipe, reads, cfg):
+    """One traced map run: (wall s, device-busy s, {span: (cpu ms, device
+    ms of the kernels it launched)}, [(kernel, device ms)] top 8)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pairs = make_pairs(reads, cfg)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.map_stream(iter(pairs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events: kernels, copies and memsets (one stream, so they
+    # do not overlap), without the device copies of the cm.* span markers
+    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("cm.")]
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e6
+    per_kernel = {}
+    for e in dev_ev:
+        per_kernel[e.name] = per_kernel.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    kern = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    spans = {e.key: (e.cpu_time_total / 1e3, e.device_time_total / 1e3)
+             for e in prof.key_averages()
+             if e.key.startswith("cm.") and e.device_type == DeviceType.CPU}
+    return wall, busy, spans, kern
+
+
+def phase_full(cfg, gi, db, reads, native, device, batch=4096):
+    """The main path: gpu-full against native, its kernel launches, stats,
+    step time and one profiled map run."""
+    from circminer_tpu_torch.ops import _ext
+    full = run_slice(cfg, gi, db, reads, "device-full", "native", device,
+                     batch, on_main_path=_ext.reset_launches)
+    launches = dict(_ext.LAUNCHES)
+    check_equal_to_native("gpu-full", full, native)
+    if device.type == "cuda":  # on the CPU the wrappers run plain versions
+        for name in FULL_KERNELS:
+            check(launches[name] > 0,
+                  f"kernel {name} was not launched on the gpu-full path")
+    pipe = full["pipe"]
+    fs = copy.deepcopy(pipe.full_stats)   # the profiled run below adds to it
+    check(fs["reads"] == len(reads), f"device-full saw {fs['reads']} reads")
+    log(f"[gpu-full] {fs['reads']} reads, {fs['deferred']} deferred "
+        f"({100.0 * fs['deferred'] / fs['reads']:.2f}%), causes "
+        f"{dict(sorted(fs['causes'].items()))}; launches {launches}")
+    args = full_step_args(pipe, make_pairs(reads[:batch], cfg), device,
+                          batch)
+    st = pipe.states[0]
+    statics = pipe._full_statics()
+    step_ms = cuda_ms(lambda: run_full_step(pipe, st, args, statics), 3)
+    log(f"[gpu-full] device_full_step: {step_ms:.1f} ms per {batch}-pair "
+        f"batch (CUDA events, 3 steps after a warm-up)")
+    wall, busy, spans, kern = profile_map(pipe, reads, cfg)
+    log(f"[gpu-full] profiled map: wall {wall:.3f} s, device busy "
+        f"{busy:.4f} s ({100.0 * busy / wall:.2f}%)")
+    for key in sorted(spans, key=lambda k: -spans[k][1]):
+        cpu, dev = spans[key]
+        log(f"[gpu-full]   span {key}: cpu {cpu:.1f} ms, device "
+            f"{dev:.2f} ms")
+    for name, ms in kern:
+        log(f"[gpu-full]   kernel {name[:70]}: device {ms:.2f} ms")
+    return full, launches, dict(step_ms=step_ms, busy=busy, wall=wall,
+                                stats=fs)
+
+
+def phase_step_vs_plain(cfg, gi, db, reads, full, n_pairs=256):
+    """One device_full_step on the card (kernels) and on the CPU (plain
+    versions) with the same inputs and statics: bit-equal blobs."""
+    import torch
+    from circminer_tpu_torch.annotation.device import (AnnoDevice,
+                                                       FinishAnnoDevice)
+    from circminer_tpu_torch.pipeline.device_pipeline import (
+        SEG_PAD, ContigDeviceState)
+    pipe = full["pipe"]
+    statics = pipe._full_statics()
+    pairs = make_pairs(reads[:n_pairs], cfg)
+    st_gpu = pipe.states[0]
+    st_cpu = ContigDeviceState.from_contig_index(gi.contigs[0], cfg, "cpu")
+    st_cpu.anno = AnnoDevice.from_contig(db.contigs[0], SEG_PAD,
+                                         device="cpu")
+    st_cpu.fanno = FinishAnnoDevice.from_contig(
+        db.contigs[0], db.con2chr[0], SEG_PAD, device="cpu")
+    st_cpu.genome = torch.from_numpy(gi.contigs[0].codes)
+    args_gpu = full_step_args(pipe, pairs, torch.device("cuda"), n_pairs)
+    args_cpu = full_step_args(pipe, pairs, torch.device("cpu"), n_pairs)
+    t0 = time.perf_counter()
+    got = run_full_step(pipe, st_gpu, args_gpu, statics).cpu()
+    t1 = time.perf_counter()
+    want = run_full_step(pipe, st_cpu, args_cpu, statics)
+    t2 = time.perf_counter()
+    check(got.dtype == want.dtype == torch.int32 and got.shape == want.shape,
+          f"step blobs {got.dtype} {tuple(got.shape)} vs {want.dtype} "
+          f"{tuple(want.shape)}")
+    bad = (got != want).any(dim=1).nonzero()[:, 0]
+    check(len(bad) == 0, f"device_full_step on the card differs from the "
+          f"plain CPU step on {len(bad)} of {n_pairs} rows, first "
+          f"{bad[:3].tolist()}: {got[bad[:2]].tolist()} vs "
+          f"{want[bad[:2]].tolist()}")
+    n_def = int((want[:, -1] != 0).sum())
+    log(f"[step-vs-plain] device_full_step on {n_pairs} pairs: card blob "
+        f"bit-equal to the plain CPU step ({n_def} deferred rows; card "
+        f"{t1 - t0:.2f} s, CPU {t2 - t1:.2f} s, statics of the "
+        f"{pipe.batch}-pair pipeline)")
+
+
 # --------------------------------------------------------------------------
-# phase 5: the CLI
+# phase 8: the CLI
 # --------------------------------------------------------------------------
 
 def phase_cli(torch_device="cuda", genome_len=100_000, n_reads=1000):
@@ -397,20 +573,22 @@ def phase_cli(torch_device="cuda", genome_len=100_000, n_reads=1000):
         cli("--index", "-r", "ref.fa", "-k", "20")
         common = ["-r", "ref.fa", "-g", "ref.gtf", "-1", "R1.fq", "-2",
                   "R2.fq", "--pam", "--torch-device", torch_device]
-        err = cli(*common, "-o", "wave", "--device", "gpu-wave")
         cli(*common, "-o", "native", "--device", "native")
-        for suffix in (".circ_report", ".mapping.pam"):
-            with open(os.path.join(d, "wave" + suffix), "rb") as f:
-                a = f.read()
-            with open(os.path.join(d, "native" + suffix), "rb") as f:
-                b = f.read()
-            check(a == b, f"CLI {suffix}: gpu-wave and native differ")
-            check(len(a) > 0 or suffix == ".circ_report",
-                  f"CLI {suffix} is empty")
-        wave_line = [ln for ln in err.splitlines() if "wave engine" in ln]
-        log(f"[cli] {n_reads} pairs: circ_report and mapping.pam of "
-            f"--device gpu-wave byte-equal to --device native "
-            f"({wave_line[0].strip() if wave_line else ''})")
+        for dev in ("gpu-wave", "gpu-chain", "gpu-full"):
+            err = cli(*common, "-o", dev, "--device", dev)
+            for suffix in (".circ_report", ".mapping.pam"):
+                with open(os.path.join(d, dev + suffix), "rb") as f:
+                    a = f.read()
+                with open(os.path.join(d, "native" + suffix), "rb") as f:
+                    b = f.read()
+                check(a == b, f"CLI {suffix}: {dev} and native differ")
+                check(len(a) > 0 or suffix == ".circ_report",
+                      f"CLI {suffix} is empty")
+            info = [ln.strip() for ln in err.splitlines()
+                    if "wave engine" in ln or "device-full:" in ln]
+            log(f"[cli] {n_reads} pairs: circ_report and mapping.pam of "
+                f"--device {dev} byte-equal to --device native "
+                f"{info[0] if info else ''}")
 
 
 # --------------------------------------------------------------------------
@@ -448,6 +626,11 @@ def main() -> int:
         lookup_ms = phase_lookup(cfg, gi, reads, device)
         launches, wave, native = phase_slice(cfg, gi, db, reads, truth,
                                              device)
+        chain = phase_chain(cfg, gi, db, reads, native, device)
+        full, full_launches, full_m = phase_full(cfg, gi, db, reads, native,
+                                                 device)
+        launches.update({k: full_launches[k] for k in FULL_KERNELS})
+        phase_step_vs_plain(cfg, gi, db, reads, full)
         phase_cli()
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "jaxlib")))
@@ -456,12 +639,17 @@ def main() -> int:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     n = wave["n"]
-    log(f"[summary] lookup {lookup_ms:.4f} ms/batch; gpu-wave map "
-        f"{n / wave['map_s']:.1f} pairs/s, map+call "
-        f"{n / (wave['map_s'] + wave['circ_s']):.1f} pairs/s; native map "
-        f"{n / native['map_s']:.1f} pairs/s, map+call "
-        f"{n / (native['map_s'] + native['circ_s']):.1f} pairs/s; total "
-        f"{time.perf_counter() - t_all:.1f} s")
+
+    def rates(r):
+        return (f"map {n / r['map_s']:.1f} pairs/s, map+call "
+                f"{n / (r['map_s'] + r['circ_s']):.1f} pairs/s")
+    fs = full_m["stats"]
+    log(f"[summary] lookup {lookup_ms:.4f} ms/batch; gpu-full "
+        f"{rates(full)}, {fs['deferred']}/{fs['reads']} deferred, step "
+        f"{full_m['step_ms']:.1f} ms/batch, device busy "
+        f"{100.0 * full_m['busy'] / full_m['wall']:.2f}%; gpu-chain "
+        f"{rates(chain)}; gpu-wave {rates(wave)}; native {rates(native)}; "
+        f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[name], "launches": launches[name],

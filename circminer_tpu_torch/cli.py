@@ -8,12 +8,15 @@ port's executors:
         -o out --pam --device gpu-wave [--torch-device cuda|cpu]
 
 ``--device``: ``gpu`` = seed lookup on the torch device, chaining and the
-finish in host C++; ``gpu-wave`` = device lookup plus wave-batched
-extension on the hand-written DP kernels; ``native`` = everything in host
-C++.  ``--torch-device`` picks the torch device of the device executors
-(``cuda`` by default; ``cpu`` runs their plain torch versions).  Stage 2
-(circRNA calling) is the shared host C++ engine.  Not ported yet:
-single-end mapping (-s), multi-host runs and --trace-dir.
+finish in host C++; ``gpu-chain`` = lookup and chain DP on the device,
+k-best extraction and the finish in host C++; ``gpu-full`` = the whole map
+step on the device (the fused device-full step), deferred reads replayed in
+host C++; ``gpu-wave`` = device lookup plus wave-batched extension on the
+hand-written DP kernels; ``native`` = everything in host C++.
+``--torch-device`` picks the torch device of the device executors (``cuda``
+by default; ``cpu`` runs their plain torch versions).  Stage 2 (circRNA
+calling) is the shared host C++ engine.  Not ported yet: single-end mapping
+(-s), multi-host runs, --trace-dir and the stage-2 device extension.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from circminer_tpu.config import PAMFORMAT, SAMFORMAT
 
 # --device -> (chain_exec, extend_exec) of the port's pipeline
 EXECUTORS = {"gpu": ("device", "native"),
+             "gpu-chain": ("device-chain", "native"),
+             "gpu-full": ("device-full", "native"),
              "gpu-wave": ("device", "device"),
              "native": ("native", "native")}
 
@@ -41,8 +46,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=sorted(EXECUTORS), default="gpu",
                    help="mapping executor: gpu = seed lookup on the torch "
                         "device, chain + finish in host C++ (default); "
+                        "gpu-chain = lookup + chain DP on the device; "
+                        "gpu-full = the fused map step on the device; "
                         "gpu-wave = device lookup + wave-batched extension "
                         "on the CUDA DP kernels; native = all host C++")
+    p.add_argument("--batch-size", type=int, default=4096,
+                   help="read pairs per device batch (the fused gpu-full "
+                        "step sizes its DP pools from it)")
     p.add_argument("--torch-device", choices=["cuda", "cpu"], default="cuda",
                    help="torch device of the device executors (cpu runs "
                         "their plain torch versions)")
@@ -107,7 +117,8 @@ def run_search(args, cfg) -> int:
                 yield r1, r2
 
         chain_exec, extend_exec = EXECUTORS[args.device]
-        pipe = DeviceMappingPipeline(db, gi, cfg, chain_exec=chain_exec,
+        pipe = DeviceMappingPipeline(db, gi, cfg, batch_size=args.batch_size,
+                                     chain_exec=chain_exec,
                                      extend_exec=extend_exec,
                                      device=args.torch_device)
         pipe.warmup()
@@ -119,6 +130,11 @@ def run_search(args, cfg) -> int:
                   f"{ws['batches']} batch(es), {sv.n_dispatch} dispatches, "
                   f"{sv.n_device} device / {sv.n_host} host requests",
                   file=sys.stderr)
+        fs = pipe.full_stats
+        if fs["reads"]:
+            print(f"[INFO] device-full: {fs['reads']} reads, "
+                  f"{fs['deferred']} deferred to the host "
+                  f"{dict(sorted(fs['causes'].items()))}", file=sys.stderr)
         out.close()
         remain.close()
         print(f"[INFO] mapping done: {n} pairs", file=sys.stderr)
@@ -130,7 +146,11 @@ def run_search(args, cfg) -> int:
             internal=cfg.internal_sort)
         pc = ProcessCirc(db, gi, cfg, args.output)
         # stage-2 extension runs in the shared host C++ engine; its device
-        # form is a later port
+        # form (which the reference's tpu-full turns on) is a later port
+        if args.device == "gpu-full":
+            print("[INFO] stage 2 runs on the host: the stage-2 device "
+                  "extension is not ported to circminer_tpu_torch yet",
+                  file=sys.stderr)
         pc.run(recs, device_ext=False)
         pc.report_events(args.output + ".circ_report")
         pc.write_candidates(args.output + ".candidates.pam")
@@ -146,6 +166,9 @@ def main(argv: List[str] = None) -> int:
         return run_index(args, cfg)
     if not args.gtf or (not args.seq and not args.seq1):
         print("error: search mode needs -g and -1/-2", file=sys.stderr)
+        return 1
+    if args.batch_size < 1:
+        print("error: --batch-size must be at least 1", file=sys.stderr)
         return 1
     why = _unported(args, cfg)
     if why:

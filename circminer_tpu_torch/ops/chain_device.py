@@ -1,0 +1,272 @@
+"""Batched seed-chaining DP on the torch device (the device half of the
+reference's ``circminer_tpu/ops/chain.py``, lines 206-472 and 538-557).
+
+The host half of that module (``Chain``, ``extract_kbest``, ...) is the
+port's jax-free copy in ``ops/chain.py``, pinned source-identical to the
+reference; this module holds the dense device formulation:
+
+  * ``_chain_prelude``: per seed cell, the reference's upper bound (the
+    near_border bit, the exon interval containing the seed and its end
+    aggregates, gene_annotation.h:123-133) and the pre-gathered junction
+    tables (segment ends and next-exon starts) that the transitions read;
+    in two forms, bit-equal to each other: padded row gathers
+    (``seg_compact=False``), or one column at a time (``seg_compact=True``,
+    the reference's low-memory form for very large entry tables);
+  * ``_chain_dp_core_lanes``: the transition DP over lists (chain.cpp:73-301)
+    with the gap, maxIntron and junction gates (chain.cpp:28-64), keeping
+    the first maximum as the backpointer;
+  * ``chain_batch_device`` = prelude + core; ``gather_and_chain_device`` =
+    seed gather + chain DP.
+
+Scores are int32 in 0.1 units (score10 = 10 * score): alpha10 = 2e5 * k per
+link, beta10 = |dist_t - dist_r|.  Tensors of the core keep the row
+dimension b last ([S, b], [S, S, b]) as the reference does.  Plain torch:
+the reference lowers this through XLA, with no Pallas twin.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..annotation.device import near_border_bit
+from .seed import gather_seeds_device
+
+_i32 = torch.int32
+_NEG = -(2 ** 29)
+_I32MAX = 2 ** 31 - 1
+
+
+def chain_batch_device(pos, cnt, qpos, seq_len,
+                       nb_bits, iv_spos, iv_epos, iv_max_end, iv_min_end,
+                       iv_max_next, iv_nseg, seg_end, seg_next,
+                       *, k: int, max_ed: int, max_intron: int, seg_pad: int,
+                       seg_compact: bool = False):
+    """Batched chain DP.
+
+    pos:  int32 [B, NL, S] seed positions (ascending per list, 0 pad)
+    cnt:  int32 [B, NL]    per-list seed counts
+    qpos: int32 [B, NL]    per-list query offsets (0-based)
+    seq_len: int32 [B]
+
+    Annotation tensors come from AnnoDevice.  Returns (dp10, back): int32
+    [B, NL, S] final scores and flat backpointers into NL*S (or -1)."""
+    B, NL, S = pos.shape
+    with record_function("cm.chain_prelude"):
+        pre = _chain_prelude(pos, cnt, qpos, seq_len, nb_bits, iv_spos,
+                             iv_epos, iv_max_end, iv_min_end, iv_max_next,
+                             iv_nseg, seg_end, seg_next, k=k, max_ed=max_ed,
+                             seg_pad=seg_pad, seg_compact=seg_compact)
+    with record_function("cm.chain_dp"):
+        dpl, bkl = _chain_dp_core_lanes(*pre, NL=NL, S=S, k=k,
+                                        max_ed=max_ed, max_intron=max_intron)
+    dp = torch.stack(dpl, dim=0).permute(2, 0, 1).contiguous()
+    back = torch.stack(bkl, dim=0).permute(2, 0, 1).contiguous()
+    return dp, back
+
+
+def _chain_dp_core_lanes(posf, qposf, validf, ub, mee, e1, sep_c, snp_c,
+                         pv_c, *, NL: int, S: int, k: int, max_ed: int,
+                         max_intron: int):
+    """Transition DP, lists from last to first.  Every tensor carries the
+    row dimension b last ([S, b], [S, S, b], [S, P, b]); sep/snp/pv arrive
+    as [M, P, b] from the prelude.  Returns per-list [S, b] scores and flat
+    backpointers."""
+    b = posf.shape[0]
+    dev = posf.device
+    P = sep_c.shape[1]
+    alpha10 = 200000 * k
+    pos_T, v_T, ub_T = posf.T, validf.T, ub.T
+    mee_T, e1_T = mee.T, e1.T
+
+    def seg(a, l):
+        return a[l * S:(l + 1) * S]
+
+    dpl = [torch.where(seg(v_T, l), 10 * k, _NEG).to(_i32) for l in range(NL)]
+    bkl = [torch.full((S, b), -1, dtype=_i32, device=dev) for _ in range(NL)]
+    tio = torch.arange(S, dtype=_i32, device=dev)[None, :, None]
+
+    for l in range(NL - 2, -1, -1):
+        pi = seg(pos_T, l)[:, None, :]               # [S, 1, b]
+        ub_l = seg(ub_T, l)[:, None, :]
+        mee_l = seg(mee_T, l)[:, None, :]
+        e1_l = seg(e1_T, l)[:, None, :]
+        v_l = seg(v_T, l)[:, None, :]
+        sep_l, snp_l, pv_l = seg(sep_c, l), seg(snp_c, l), seg(pv_c, l)
+        qp_l = qposf[:, l * S][None, None, :]        # per-list constant
+
+        best_v = torch.full((S, b), _NEG, dtype=_i32, device=dev)
+        best_i = torch.full((S, b), -1, dtype=_i32, device=dev)
+        for j in range(l + 1, NL):
+            pjv = seg(pos_T, j)[None, :, :]          # [1, St, b]
+            v_j = seg(v_T, j)[None, :, :]
+            qp_j = qposf[:, j * S][None, None, :]
+            rd = qp_j - qp_l - k                     # [1, 1, b]
+            # maxIntron rule (chain.cpp:148-150)
+            minpos = torch.where(pjv > pi, pjv, _I32MAX).amin(dim=1,
+                                                              keepdim=True)
+            base = (v_l & (minpos <= pi + max_intron) & v_j
+                    & (pjv > pi) & (pjv <= ub_l))    # [S, St, b]
+            ge_allowed = (mee_l == 0) | ((pjv + k - 1) <= mee_l)
+            gd = pjv - pi - k
+            g_ok = ge_allowed & ((gd - rd).abs() <= max_ed)
+
+            # junction gate (chain.cpp:28-64) over the pre-gathered segs
+            jn_ok = torch.zeros((S, S, b), dtype=torch.bool, device=dev)
+            jn_dist = torch.zeros((S, S, b), dtype=_i32, device=dev)
+            intron_any = jn_ok
+            for p in range(P):
+                sep3 = sep_l[:, p:p + 1, :]          # [S, 1, b]
+                snp3 = snp_l[:, p:p + 1, :]
+                pv3 = pv_l[:, p:p + 1, :]
+                e12end3 = sep3 - e1_l
+                beg2s2 = pjv - snp3                  # [S, St, b]
+                td = e12end3 + beg2s2
+                pv_e = pv3 & (e12end3 >= 0)
+                acc = pv_e & (beg2s2 >= 0) & ((td - rd).abs() <= max_ed)
+                jn_dist = torch.where(~jn_ok & acc, td, jn_dist)
+                jn_ok = jn_ok | acc
+                intron_any = intron_any | (pv_e & (e12end3 < rd)
+                                           & ((beg2s2 + k) < 0))
+            j_ok = (pjv > e1_l) & (jn_ok | intron_any)
+            j_dist = torch.where(jn_ok, jn_dist, pjv - e1_l - 1)
+            ok = base & (g_ok | j_ok)
+            distt = torch.where(g_ok, gd, j_dist)
+            sc = torch.where(ok, alpha10 - (distt - rd).abs(), _NEG)
+
+            cand = sc + dpl[j][None, :, :]           # [S, St, b]
+            cv = cand.amax(dim=1)                    # [S, b]
+            # first maximum: the earliest flat index among equal maxima
+            ci = torch.where(cand == cv[:, None, :], tio, S).amin(dim=1) \
+                + j * S
+            upd = cv > best_v
+            best_i = torch.where(upd, ci, best_i)
+            best_v = torch.where(upd, cv, best_v)
+
+        improve = best_v > dpl[l]
+        dpl[l] = torch.where(improve, best_v, dpl[l])
+        bkl[l] = torch.where(improve, best_i, bkl[l])
+    return dpl, bkl
+
+
+def _chain_prelude(pos, cnt, qpos, seq_len,
+                   nb_bits, iv_spos, iv_epos, iv_max_end, iv_min_end,
+                   iv_max_next, iv_nseg, seg_end, seg_next,
+                   *, k: int, max_ed: int, seg_pad: int,
+                   seg_compact: bool = False):
+    """Per-cell upper bounds + pre-gathered junction tables (the
+    annotation-dependent half of the chain DP)."""
+    B, NL, S = pos.shape
+    M = NL * S
+    dev = pos.device
+    n_iv = iv_spos.shape[0]
+
+    posf = pos.reshape(B, M)
+    slot_of = torch.arange(NL, device=dev).repeat_interleave(S)      # [M]
+    idx_in_slot = torch.arange(S, dtype=_i32, device=dev).repeat(NL)
+    validf = idx_in_slot[None, :] < cnt[:, slot_of]
+    qposf = qpos[:, slot_of]                                          # [B, M]
+    read_remain = seq_len[:, None] - qposf - k                        # [B, M]
+
+    # ---- per-cell upper bound (gene_annotation.h:123-133, .cpp:464-533) ----
+    nb = near_border_bit(nb_bits, posf)
+
+    # interval bisect: iv_raw = (# intervals with spos <= pos) - 1
+    lo = torch.zeros_like(posf)
+    hi = torch.full_like(posf, n_iv)
+    for _ in range(max(1, int(np.ceil(np.log2(max(2, n_iv + 1)))) + 1)):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        go_right = iv_spos[torch.clamp(mid, 0, n_iv - 1).long()] <= posf
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    iv_raw = lo - 1
+    iv_c = torch.clamp(iv_raw, 0, n_iv - 1).long()
+    found = (iv_raw >= 0) & (iv_epos[iv_c] >= posf) & (iv_nseg[iv_c] > 0)
+
+    epos = posf + k - 1
+    # intronic: bound by the next interval's start
+    nxt = torch.clamp(iv_raw + 1, 0, n_iv - 1).long()
+    has_nxt = (iv_raw + 1) < n_iv
+    max_end_intr = torch.where(has_nxt, iv_spos[nxt] - 1, _I32MAX)
+    ub_intr = torch.where(
+        max_end_intr < epos, 0,
+        torch.minimum(posf + read_remain + max_ed, max_end_intr - k + 1))
+
+    # exonic: aggregates, recomputed over segs ending >= epos when the kmer
+    # crosses the interval end; padded [B, M, P] row gathers, or one seg
+    # column at a time (seg_compact: no [B, M, P] temporaries)
+    if seg_compact:
+        nseg_iv = iv_nseg[iv_c]
+        max_end_rc = torch.zeros_like(epos)
+        min_end_rc = torch.full_like(epos, 10 ** 9)
+        max_next_rc = torch.zeros_like(epos)
+        for p in range(seg_pad):
+            se_p = seg_end[:, p][iv_c]
+            sn_p = seg_next[:, p][iv_c]
+            ok = (p < nseg_iv) & (se_p >= epos)
+            max_end_rc = torch.maximum(max_end_rc, torch.where(ok, se_p, 0))
+            min_end_rc = torch.minimum(min_end_rc,
+                                       torch.where(ok, se_p, 10 ** 9))
+            max_next_rc = torch.maximum(max_next_rc,
+                                        torch.where(ok, sn_p, 0))
+    else:
+        se_iv = seg_end[iv_c]            # [B, M, P]
+        sn_iv = seg_next[iv_c]
+        pvalid = (torch.arange(seg_pad, device=dev)[None, None, :]
+                  < iv_nseg[iv_c][..., None])
+        sel = pvalid & (se_iv >= epos[..., None])
+        max_end_rc = torch.where(sel, se_iv, 0).amax(dim=-1)
+        min_end_rc = torch.where(sel, se_iv, 10 ** 9).amin(dim=-1)
+        max_next_rc = torch.where(sel, sn_iv, 0).amax(dim=-1)
+    need_rc = epos > iv_epos[iv_c]
+    max_end = torch.where(need_rc, max_end_rc, iv_max_end[iv_c])
+    min_end = torch.where(need_rc, min_end_rc, iv_min_end[iv_c])
+    max_next = torch.where(need_rc, max_next_rc, iv_max_next[iv_c])
+
+    exonic = (max_end > 0) & (max_end >= epos)
+    ub_exon = torch.where((min_end < read_remain + epos) & (max_next != 0),
+                          max_next + k - 1, max_end - k + 1)
+    ub_found = torch.where(exonic, ub_exon, 0)
+    mee_found = torch.where(exonic, max_end, 0)
+
+    ub = torch.where(nb, torch.where(found, ub_found, ub_intr),
+                     posf + read_remain + max_ed)
+    # the intronic max_end is reported too; a crossing kmer gets ub 0,
+    # which kills its transitions anyway
+    mee = torch.where(nb, torch.where(found, mee_found, max_end_intr), 0)
+    ol_iv = torch.where(nb & found & exonic, iv_c.to(_i32), -1)
+
+    # ---- per-cell constants + pre-gathered junction tables [M, P, b] ----
+    e1 = posf + k - 1
+    has_iv = ol_iv >= 0
+    iv_cc = torch.clamp(ol_iv, 0, n_iv - 1).long()
+    nseg_cc = iv_nseg[iv_cc]                                     # [B, M]
+    if seg_compact:
+        sep_T = torch.stack([seg_end[:, p][iv_cc].T
+                             for p in range(seg_pad)], dim=1)    # [M, P, b]
+        snp_T = torch.stack([seg_next[:, p][iv_cc].T
+                             for p in range(seg_pad)], dim=1)
+    else:
+        sep_T = seg_end[iv_cc].permute(1, 2, 0)                  # [M, P, b]
+        snp_T = seg_next[iv_cc].permute(1, 2, 0)
+    pv_T = (has_iv.T[:, None, :]
+            & (torch.arange(seg_pad, dtype=_i32, device=dev)[None, :, None]
+               < nseg_cc.T[:, None, :]))                         # [M, P, b]
+    return posf, qposf, validf, ub, mee, e1, sep_T, snp_T, pv_T
+
+
+def gather_and_chain_device(entry_pos, start, cnt, qpos, seq_len,
+                            nb_bits, iv_spos, iv_epos, iv_max_end,
+                            iv_min_end, iv_max_next, iv_nseg, seg_end,
+                            seg_next, *, cap: int, k: int, max_ed: int,
+                            max_intron: int, seg_pad: int):
+    """Seed gather + chain DP in one call.  Returns (pos, dp10, back)."""
+    pos, _ = gather_seeds_device(entry_pos, start, cnt, cap=cap)
+    dp10, back = chain_batch_device(
+        pos, cnt, qpos, seq_len,
+        nb_bits, iv_spos, iv_epos, iv_max_end, iv_min_end,
+        iv_max_next, iv_nseg, seg_end, seg_next,
+        k=k, max_ed=max_ed, max_intron=max_intron, seg_pad=seg_pad)
+    return pos, dp10, back

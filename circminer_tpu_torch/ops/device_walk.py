@@ -1,0 +1,564 @@
+"""Multi-exon transcript extension walks on the torch device (counterpart of
+``circminer_tpu/ops/device_walk.py``).
+
+The host walk (pipeline/extend.py ``_extend_right_trans_g`` /
+``_extend_left_trans_g``, src/extend.cpp:491-650 and :708-875) visits a
+transcript's exons one disjoint interval at a time, alternating annotation
+scans with banded middle DPs (``local_alignment_right/left``,
+src/align.cpp:556-600) and one terminal X-drop end DP per transcript.  The
+device form runs every walk of the fused step at once:
+
+* **lanes**: every (extend family, pair slot, common transcript) that needs
+  a walk is a lane of a ``[ST, WPP]`` pool (families: l-mate-left,
+  r-mate-left, r-mate-right, l-mate-right), pool index last.
+* **speculation**: which intervals a walk visits and where its DPs land
+  depend only on the annotation and earlier DP indels, never on the
+  extend's bound (lb/ub) or error budget (ed_th), which can only abort it.
+  So all four families walk together through ``EW`` waves (scan up to
+  ``KSCAN`` intervals -> pooled middle DPs -> pooled end DPs -> commit), and
+  the bound / ed_th gates are replayed afterwards per family
+  (``walk_fold``), once each extend's bound is known.
+* **events**: a lane emits at most one best-update event per wave; the fold
+  replays them in (tid, event) order, the host's sequential best fold.
+
+The middle DPs run on the ``edit_end`` kernel (``_end_dp_pool``) and the
+end DPs on the ``xdrop`` kernel; on CPU tensors, their plain versions.
+Budget overflows (more than EW DPs per lane, scans past EW*KSCAN intervals,
+exhausted pools, more than STW = 8 common transcripts) raise the read's
+DEF_EXTWALK bit, and the read replays on the host: results are exact or
+absent.  The budgets are the reference's, so the port defers exactly where
+the reference does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .align_device import edit_end_batch
+from .pallas_align import POS, xdrop_batch
+
+_i32 = torch.int32
+
+# lane status codes
+WK_SCAN, WK_PMID, WK_PTRAIL, WK_PEND, WK_PENDND, WK_DONE = 0, 1, 2, 3, 4, 5
+# event kinds
+EVK_NONE, EVK_MID, EVK_TRAIL, EVK_END, EVK_ENDND = 0, 1, 2, 3, 4
+# event record fields: [kind, xpos, aux(exlen|covered), ed, indel, sclen,
+#                       score]
+EV_NF = 7
+STW = 8   # packed transcript lanes per walk; more common tids defer
+
+NEG_SCORE = -(10 ** 9)
+
+
+def _col(x, idx):
+    """x[r, idx[r]] for a [R, C] table and in-range int32 idx [R]."""
+    return torch.gather(x, 1, idx.long()[:, None])[:, 0]
+
+
+# --------------------------------------------------------------------------
+# middle-DP pool: local_alignment_right semantics for every shape
+# --------------------------------------------------------------------------
+
+def _tiny_end(s, t, n, m, *, w, max_ed, NM, MM):
+    """Full (unbanded) edit DP + the column-m candidate scan for the tiny
+    shapes where the oracle's banded DP falls back to full DP
+    (align.py:88-90: n <= 2w or m <= w; both dims are then <= 2w).
+    Candidate order: ed asc, |indel| asc, smallest i first (align.py:
+    184-188, AlignCandid.update with strict better_than)."""
+    B = s.shape[0]
+    dev = s.device
+    j_io = torch.arange(MM + 1, dtype=_i32, device=dev)[None, :]
+    row = torch.where(j_io <= m[:, None], j_io.expand(B, MM + 1), POS)
+    best_key = torch.zeros((B,), dtype=_i32, device=dev)
+    best_ed = torch.full((B,), max_ed + 1, dtype=_i32, device=dev)
+    best_indel = torch.full((B,), w + 1, dtype=_i32, device=dev)
+    m_c = torch.clamp(m, 0, MM)
+
+    def upd_cand(i, rowv, bk, be, bi):
+        dmv = _col(rowv, m_c)
+        indel = m - i
+        ok = (i <= n) & (indel.abs() <= w) & (dmv <= max_ed)
+        key = ((max_ed - dmv) * (w + 2)
+               + (w + 1 - torch.clamp(indel.abs(), max=w + 1)))
+        better = ok & (key > bk)
+        return (torch.where(better, key, bk), torch.where(better, dmv, be),
+                torch.where(better, indel, bi))
+
+    best_key, best_ed, best_indel = upd_cand(0, row, best_key, best_ed,
+                                             best_indel)
+    for i in range(1, NM + 1):
+        si = s[:, i - 1]
+        prev = row
+        cols = [torch.where(i <= n, i, POS).to(_i32)]
+        for j in range(1, MM + 1):
+            tj = t[:, j - 1]
+            mis = ((si != tj) | (si >= 4) | (tj >= 4)).to(_i32)
+            v = torch.minimum(prev[:, j - 1] + mis,
+                              torch.minimum(prev[:, j] + 1, cols[j - 1] + 1))
+            cols.append(torch.where((i <= n) & (j <= m), v, POS))
+        row = torch.where((i <= n)[:, None], torch.stack(cols, dim=1), prev)
+        best_key, best_ed, best_indel = upd_cand(i, row, best_key, best_ed,
+                                                 best_indel)
+    return best_ed, best_indel
+
+
+def _end_dp_pool(s, t, n, m, *, w, max_ed, I):
+    """Pooled local_alignment_right (the ``end_r/end_l`` request kind):
+    the ``edit_end`` kernel for the banded regime, the tiny full DP for the
+    fallback shapes (n <= 2w or m <= w, which bounds both dims by 2w).
+    Returns (ed, indel); the request's score is -ed (align.py:188)."""
+    n, m = n.to(_i32).contiguous(), m.to(_i32).contiguous()
+    b_ed, b_in = edit_end_batch(s.contiguous(), t.contiguous(), n, m, w=w,
+                                max_ed=max_ed, I=I)
+    TN = TM = max(8, 2 * w + 2)
+    t_ed, t_in = _tiny_end(s[:, :TN], t[:, :TM], torch.clamp(n, max=TN),
+                           torch.clamp(m, max=TM), w=w, max_ed=max_ed,
+                           NM=TN, MM=TM)
+    tiny = (n <= 2 * w) | (m <= w)
+    return torch.where(tiny, t_ed, b_ed), torch.where(tiny, t_in, b_in)
+
+
+# --------------------------------------------------------------------------
+# the speculative walk waves
+# --------------------------------------------------------------------------
+
+def walk_waves(act4, pos4, len4, aiv4, row4, qs04, left4, fiv, riv,
+               seqsf, L, genome, ad, fa, *, band, max_ed, max_sc,
+               mat, mis, ind, xd, EW, KSCAN, WPP, MIDP, ENDP, I=128):
+    """Run the walks of all four extend families together.
+
+    act4/pos4/len4/aiv4/row4/qs04: [4, N] lane tables (N = flattened B*2*P
+    pair slots; row4 = absolute seqs row, qs04 = query-window base offset
+    within the row); left4: per-family left/right flags; fiv/riv: [N] pair
+    anchor intervals defining the common-transcript set (pair_chains order,
+    utils.cpp:322-352: f_iv's tid list filtered by membership in r_iv's,
+    duplicates kept).
+
+    Returns the pooled event tensor + metadata for ``walk_fold``."""
+    from .device_full import _compact, _drop_wrap, _gather_window, \
+        _scatter_pool
+
+    dev = act4.device
+    N = fiv.reshape(-1).shape[0]
+    ST = fa.iv_tids.shape[1]
+    NIV = ad.iv_spos.shape[0]
+    NT = fa.trans_start.shape[0]
+    NS = fa.t2s_state.shape[0]
+    G = genome.shape[0]
+    RL = seqsf.shape[0]
+
+    inv, n_act, over = _compact(act4.reshape(-1), WPP)   # pool -> flat4 idx
+    inv_l = inv.long()
+
+    def gp(x4):
+        return x4.reshape(-1)[inv_l]                     # [WPP]
+
+    p_pos, p_len, p_aiv = gp(pos4), gp(len4), gp(aiv4)
+    p_row, p_qs0 = gp(row4), gp(qs04)
+    fam = inv // N
+    p_left = torch.zeros_like(fam, dtype=torch.bool)
+    for f, left in enumerate(left4):
+        if left:
+            p_left |= fam == f
+    p_live = torch.arange(WPP, dtype=_i32, device=dev) < n_act
+    lane_n = (inv % N).long()                            # pair slot of lane
+    p_fiv = fiv.reshape(-1)[lane_n]
+    p_riv = riv.reshape(-1)[lane_n]
+
+    # ---- per-tid init ([ST, WPP]) -------------------------------------
+    fivc = torch.clamp(p_fiv, 0, NIV - 1).long()
+    rivc = torch.clamp(p_riv, 0, NIV - 1).long()
+    tids = fa.iv_tids[fivc].T                            # [ST, WPP]
+    tr = fa.iv_tids[rivc].T
+    memb = (tids[:, None, :] == tr[None, :, :]).any(dim=1)
+    act = p_live[None, :] & (tids >= 0) & memb
+
+    # ---- pack active tids to STW slots (order-preserving); lanes with
+    # more common tids than STW defer ----------------------------------
+    stw = min(ST, STW)
+    rank1_t = torch.cumsum(act, dim=0, dtype=_i32)       # [ST, WPP]
+    n_tid = rank1_t[-1]
+    over_tid = p_live & (n_tid > stw)
+    t_io_f = torch.arange(ST, dtype=_i32, device=dev)[:, None]
+    pack = torch.stack(
+        [torch.where(act & (rank1_t == j + 1), t_io_f, ST).amin(dim=0)
+         for j in range(stw)], dim=0)                    # [STW, WPP]
+    tids = torch.gather(tids, 0, torch.clamp(pack, 0, ST - 1).long())
+    act = (pack < ST) & ~over_tid[None, :]
+    ST = stw
+
+    tc = torch.clamp(tids, 0, NT - 1).long()
+    tstart = fa.trans_start[tc]
+    toff = fa.t2s_off[tc]
+    tlen = fa.t2s_off[tc + 1] - toff
+
+    aivc = torch.clamp(p_aiv, 0, NIV - 1).long()
+    anchor_rem = ad.iv_epos[aivc] - p_pos                # right-walk exon_len
+
+    shp = act.shape
+    is_left = p_left[None, :].expand(shp)
+    i_abs = torch.where(is_left, p_aiv[None, :], p_aiv[None, :] + 1)
+    iend = tstart + tlen - 1                             # right scan end
+    istop = tstart                                       # left scan floor
+    xpos = p_pos[None, :].expand(shp).clone()
+    zero = torch.zeros(shp, dtype=_i32, device=dev)
+    exlen = torch.where(is_left, 0, anchor_rem[None, :].expand(shp))
+    covered = zero
+    remref = (p_len + band)[None, :].expand(shp)
+    first = is_left                                      # left first_seg
+    stat = torch.where(act, WK_SCAN, WK_DONE).to(_i32)
+    pend_iv = pend_xpos = pend_exlen = pend_cov = pend_rr = nev = zero
+    # events [ST, EW, EV_NF, WPP]; slot e = the lane's e-th emission
+    events = torch.zeros((ST, EW, EV_NF, WPP), dtype=_i32, device=dev)
+
+    qlen_b = p_len[None, :].expand(shp)
+    pos_b = p_pos[None, :].expand(shp)
+
+    def t2s_at(iv_abs):
+        row = iv_abs - tstart
+        ok = (row >= 0) & (row < tlen)
+        st = fa.t2s_state[torch.clamp(toff + row, 0, NS - 1).long()]
+        return torch.where(ok, st.to(_i32), 0)
+
+    io = torch.arange(I - 1, dtype=_i32, device=dev)
+    ew_io = torch.arange(EW, dtype=_i32, device=dev)
+    t_io = torch.arange(ST, dtype=_i32, device=dev)
+    mp = max(MIDP) if isinstance(MIDP, (tuple, list)) else MIDP
+    ep = max(ENDP) if isinstance(ENDP, (tuple, list)) else ENDP
+
+    def dedup(mask, fields):
+        """Lanes of one pair side with the same walk geometry: only the
+        first (the leader) enters the pool; the others read its result."""
+        eq = mask[:, None, :] & mask[None, :, :]
+        for f in fields:
+            eq = eq & (f[:, None, :] == f[None, :, :])
+        lead = torch.where(eq, t_io[None, :, None], ST).amin(dim=1)
+        lead = torch.where(mask, lead, t_io[:, None])
+        return lead.long(), mask & (lead == t_io[:, None])
+
+    def pooled(vals, inv_, n_, lead):
+        flat = _scatter_pool(vals, inv_, n_, ST * WPP).reshape(ST, WPP)
+        return torch.gather(flat, 0, lead)
+
+    for _ in range(EW):
+        # ---- scan up to KSCAN intervals -------------------------------
+        for _ in range(KSCAN):
+            on = stat == WK_SCAN
+            need = qlen_b - covered
+            ivc = torch.clamp(i_abs, 0, NIV - 1).long()
+            ivs = ad.iv_spos[ivc]
+            ive = ad.iv_epos[ivc]
+            ivl = ive - ivs + 1
+            stt = t2s_at(i_abs)
+
+            # LEFT accumulate (host order: accumulate, break, flush;
+            # extend.py:497-510)
+            l_on = on & is_left
+            ended_l = l_on & (i_abs < istop)
+            l_go = l_on & ~ended_l
+            nz = l_go & (stt != 0)
+            new_exlen = torch.where(nz & first, pos_b - ivs,
+                                    torch.where(nz & ~first, exlen + ivl,
+                                                exlen))
+            xpos = torch.where(nz & ~first & (exlen == 0), ive + 1, xpos)
+            first = torch.where(nz, False, first)
+            # RIGHT: the break check precedes the state read (:384-386)
+            r_on = on & ~is_left
+            ended_r = r_on & (i_abs > iend)
+            r_go = r_on & ~ended_r
+            brk_r = r_go & (exlen >= need)
+            exlen = torch.where(l_go, new_exlen, exlen)
+            brk_l = l_go & (exlen >= need)
+
+            ended = ended_l | ended_r
+            brk = brk_l | brk_r
+
+            # terminal transitions (trailing / end / done)
+            trail_geo = ended & (exlen > 0) & (exlen < need)
+            t_inb = torch.where(is_left,
+                                (xpos - exlen >= 1) & (xpos - 1 <= G),
+                                (xpos + 1 >= 1) & (xpos + exlen <= G))
+            to_trail = trail_geo & t_inb
+            # ref-OOB trailing: the host middle fails -> no event
+            end_geo = (ended | brk) & ~trail_geo & (covered < qlen_b) \
+                & (exlen >= need)
+            rr2 = torch.minimum(remref, exlen)
+            # rr2 can go negative after several indel-bearing flushes
+            # (extend.py:421/545): the host's genome.get(_, len < 0) gives
+            # None -> no DP, but consec is set
+            e_inb = (rr2 >= 0) & torch.where(
+                is_left, (xpos - rr2 >= 1) & (xpos - 1 <= G),
+                (xpos + 1 >= 1) & (xpos + rr2 <= G))
+            to_end = end_geo & e_inb
+            to_endnd = end_geo & ~e_inb      # consec candidate, no DP
+            to_done = (ended | brk) & ~to_trail & ~to_end & ~to_endnd
+
+            # in-loop state-1 flush
+            go = (l_go | r_go) & ~brk
+            flush = go & (stt == 1) & (exlen > 0)
+            m_inb = torch.where(is_left,
+                                (xpos - exlen >= 1) & (xpos - 1 <= G),
+                                (xpos + 1 >= 1) & (xpos + exlen <= G))
+            to_mid = flush & m_inb
+            mid_oob = flush & ~m_inb         # host: the walk fails
+
+            stat = torch.where(
+                to_trail, WK_PTRAIL, torch.where(
+                    to_end, WK_PEND, torch.where(
+                        to_endnd, WK_PENDND, torch.where(
+                            to_mid, WK_PMID, torch.where(
+                                to_done | mid_oob, WK_DONE, stat)))))
+            moved = to_mid | to_trail | to_end | to_endnd
+            pend_iv = torch.where(to_mid, i_abs, pend_iv)
+            pend_xpos = torch.where(moved, xpos, pend_xpos)
+            pend_exlen = torch.where(to_mid | to_trail, exlen, pend_exlen)
+            pend_cov = torch.where(moved, covered, pend_cov)
+            pend_rr = torch.where(to_end, rr2, pend_rr)
+
+            # plain scan advance; a right empty flush sets rspos =
+            # iv_spos - 1, then the state-1 interval accumulates
+            # (extend.py:420-428)
+            adv = go & (stt != 1)
+            r_empty = go & ~is_left & (stt == 1) & (exlen == 0)
+            l_empty = go & is_left & (stt == 1) & (exlen == 0)
+            acc_r = (adv | r_empty) & ~is_left & (stt != 0)
+            exlen = torch.where(acc_r, exlen + ivl, exlen)
+            xpos = torch.where(r_empty, ivs - 1, xpos)
+            step_f = (adv | r_empty) & ~is_left
+            step_b = (adv | l_empty) & is_left
+            i_abs = torch.where(step_f, i_abs + 1,
+                                torch.where(step_b, i_abs - 1, i_abs))
+
+        # ---- middle / trailing DP pool (edit_end) ---------------------
+        m_act = (stat == WK_PMID) | (stat == WK_PTRAIL)
+        m_lead, m_uniq = dedup(m_act, (pend_xpos, pend_exlen, pend_cov))
+        m_inv, m_n, m_over = _compact(m_uniq.reshape(-1), mp)
+        m_inv_l = m_inv.long()
+        lane_m = (m_inv % WPP).long()
+        ml = p_left[lane_m]
+        m_xpos = pend_xpos.reshape(-1)[m_inv_l]
+        m_exlen = pend_exlen.reshape(-1)[m_inv_l]
+        m_cov = pend_cov.reshape(-1)[m_inv_l]
+        m_qlen = p_len[lane_m]
+        m_remq = torch.minimum(m_exlen + band, m_qlen - m_cov)
+        m_row = p_row[lane_m]
+        m_qs0 = p_qs0[lane_m]
+        # q window: right [qs0+cov, qs0+cov+remq) forward; left
+        # [qs0+qlen-cov-remq, qs0+qlen-cov) reversed (extend.py:534-535)
+        qi_f = m_row[:, None] * L + (m_qs0 + m_cov)[:, None] + io[None, :]
+        qi_r = m_row[:, None] * L \
+            + (m_qs0 + m_qlen - m_cov - m_remq)[:, None] \
+            + (m_remq[:, None] - 1 - io[None, :])
+        qi = torch.where(ml[:, None], qi_r, qi_f)
+        q_win = torch.where(io[None, :] < m_remq[:, None],
+                            seqsf[torch.clamp(qi, 0, RL - 1).long()], 127)
+        r_f = _gather_window(genome, m_xpos, m_exlen, I - 1)
+        r_r = _gather_window(genome, m_xpos - m_exlen - 1, m_exlen, I - 1,
+                             reverse=True)
+        r_win = torch.where(ml[:, None], r_r, r_f)
+        md_ed, md_in = _end_dp_pool(q_win, r_win, m_remq, m_exlen, w=band,
+                                    max_ed=max_ed, I=I)
+        md_ed_f = pooled(md_ed, m_inv, m_n, m_lead)
+        md_in_f = pooled(md_in, m_inv, m_n, m_lead)
+
+        # ---- end DP pool (xdrop) ---------------------------------------
+        e_act = stat == WK_PEND
+        e_lead, e_uniq = dedup(e_act, (pend_xpos, pend_cov, pend_rr))
+        e_inv, e_n, e_over = _compact(e_uniq.reshape(-1), ep)
+        e_inv_l = e_inv.long()
+        lane_e = (e_inv % WPP).long()
+        el = p_left[lane_e]
+        e_xpos = pend_xpos.reshape(-1)[e_inv_l]
+        e_cov = pend_cov.reshape(-1)[e_inv_l]
+        e_rr = pend_rr.reshape(-1)[e_inv_l]
+        e_need = p_len[lane_e] - e_cov
+        e_row = p_row[lane_e]
+        e_qs0 = p_qs0[lane_e]
+        # q: right [qs0+cov, qs0+cov+need) forward; left [qs0, qs0+need)
+        # reversed (the host end DP uses qseq[:qseq_len - covered])
+        eq_f = e_row[:, None] * L + (e_qs0 + e_cov)[:, None] + io[None, :]
+        eq_r = e_row[:, None] * L + e_qs0[:, None] \
+            + (e_need[:, None] - 1 - io[None, :])
+        eqi = torch.where(el[:, None], eq_r, eq_f)
+        t_q = torch.where(io[None, :] < e_need[:, None],
+                          seqsf[torch.clamp(eqi, 0, RL - 1).long()], 127)
+        er_f = _gather_window(genome, e_xpos, e_rr, I - 1)
+        er_r = _gather_window(genome, e_xpos - e_rr - 1, e_rr, I - 1,
+                              reverse=True)
+        s_e = torch.where(el[:, None], er_r, er_f)
+        xsc, xon_s, xon_t = xdrop_batch(
+            s_e.contiguous(), t_q.contiguous(), e_rr.contiguous(),
+            e_need.contiguous(), w=band, mat=mat, mis=mis, ind=ind, xd=xd,
+            I=I)
+        wrap = dict(mat=mat, mis=mis, w=band, max_ed=max_ed, max_sc=max_sc)
+        dl = _drop_wrap(xsc, xon_s, xon_t, e_need, left=True, **wrap)
+        dr = _drop_wrap(xsc, xon_s, xon_t, e_need, left=False, **wrap)
+        e_ed_f, e_scl_f, e_ind_f, e_scr_f = (
+            pooled(torch.where(el, a, b), e_inv, e_n, e_lead)
+            for a, b in zip(dl, dr))
+
+        # pool-overflow lanes keep their pending status: they retry in the
+        # next wave's pool and defer if still unresolved at the end
+        # (duplicates inherit their leader's overflow)
+        m_over2 = torch.gather(m_over.reshape(ST, WPP), 0, m_lead)
+        e_over2 = torch.gather(e_over.reshape(ST, WPP), 0, e_lead)
+
+        # ---- commit: one emit per wave (kinds exclude each other) -------
+        mid_c = (stat == WK_PMID) & ~m_over2
+        tr_c = (stat == WK_PTRAIL) & ~m_over2
+        end_c = (stat == WK_PEND) & ~e_over2
+        endnd_c = stat == WK_PENDND
+        any_c = mid_c | tr_c | end_c | endnd_c
+        is_end_ev = end_c | endnd_c
+        kind_v = torch.where(mid_c, EVK_MID, torch.where(
+            tr_c, EVK_TRAIL, torch.where(end_c, EVK_END, EVK_ENDND))).to(_i32)
+        aux_v = torch.where(is_end_ev, pend_cov, pend_exlen)
+        ed_v = torch.where(end_c, e_ed_f,
+                           torch.where(endnd_c, zero, md_ed_f))
+        in_v = torch.where(end_c, e_ind_f,
+                           torch.where(endnd_c, zero, md_in_f))
+        scl_v = torch.where(end_c, e_scl_f, zero)
+        scr_v = torch.where(end_c, e_scr_f,
+                            torch.where(endnd_c, zero, -md_ed_f))
+        upd = torch.stack([kind_v, pend_xpos, aux_v, ed_v, in_v, scl_v,
+                           scr_v], dim=1)                # [ST, NF, WPP]
+        sel = (ew_io[None, :, None]
+               == torch.clamp(nev, 0, EW - 1)[:, None, :]) & any_c[:, None, :]
+        events = torch.where(sel[:, :, None, :], upd[:, None, :, :], events)
+        nev = torch.where(any_c, nev + 1, nev)
+
+        # middle commit: covered/remref advance + rescan positioning
+        covered = torch.where(mid_c, covered + pend_exlen - md_in_f, covered)
+        remref = torch.where(mid_c, remref - pend_exlen, remref)
+        pivc = torch.clamp(pend_iv, 0, NIV - 1).long()
+        piv_len = ad.iv_epos[pivc] - ad.iv_spos[pivc] + 1
+        # right: rspos = iv_spos[pend]-1, exlen = len(pend), i = pend+1
+        # (extend.py:421-428); left: exlen = 0, i = pend-1 (:545-547)
+        xpos = torch.where(mid_c & ~is_left, ad.iv_spos[pivc] - 1, xpos)
+        exlen = torch.where(mid_c & ~is_left, piv_len,
+                            torch.where(mid_c & is_left, 0, exlen))
+        i_abs = torch.where(mid_c & ~is_left, pend_iv + 1,
+                            torch.where(mid_c & is_left, pend_iv - 1, i_abs))
+        stat = torch.where(mid_c, WK_SCAN,
+                           torch.where(tr_c | end_c | endnd_c, WK_DONE,
+                                       stat))
+
+    lane_defer = ((stat != WK_DONE) & act).any(dim=0) | over_tid   # [WPP]
+    return dict(events=events.reshape(ST * EW, EV_NF, WPP), act=act,
+                inv=inv, n_act=n_act, over=over, lane_defer=lane_defer,
+                p_pos=p_pos, p_len=p_len, p_live=p_live, N=N, ST=ST,
+                EW=EW, WPP=WPP)
+
+
+# --------------------------------------------------------------------------
+# the per-family fold: replay events against (ed_th, bound)
+# --------------------------------------------------------------------------
+
+KEYS = ("pos", "ed", "sclen", "indel", "qcov", "score")
+
+
+def walk_fold(wk, fam: int, ed_th, bound, *, max_ed, max_sc, band,
+              left: bool):
+    """Replay one extend family's events in (tid, event) order against that
+    extend's actual ed_th/bound (both [B, 2, P]).  Returns (best dict,
+    consec, defer), each [B, 2, P]; callers mask with their own active-lane
+    set."""
+    from .device_full import _scatter_pool
+
+    N, ST, EW = wk["N"], wk["ST"], wk["EW"]
+    shp3 = ed_th.shape
+    inv = wk["inv"]
+    lane_n = (inv % N).long()
+    mine = ((inv // N) == fam) & wk["p_live"]
+    eth = ed_th.reshape(-1)[lane_n]
+    bnd = bound.reshape(-1)[lane_n]
+    pos = wk["p_pos"]
+    qlen = wk["p_len"]
+    events = wk["events"]                                # [ST*EW, NF, WPP]
+    zero = torch.zeros_like(pos)
+
+    # initial best: extend.py:609/663 best.set(pos, edth+1, len+1, w+1, 0, 0)
+    best = dict(zip(KEYS, (pos, eth + 1, qlen + 1,
+                           torch.full_like(pos, band + 1), zero, zero)))
+    curr0 = dict(zip(KEYS, (bnd, zero, zero, zero, zero,
+                            torch.full_like(pos, NEG_SCORE))))
+    consec = torch.zeros(pos.shape, dtype=torch.bool, device=pos.device)
+    curr, alive = curr0, None
+
+    for s in range(ST * EW):
+        if s % EW == 0:                                  # next transcript
+            curr = curr0
+            alive = wk["act"][s // EW] & mine
+        kind, xp, aux, ed, indel, sclen, scr = events[s].unbind(0)
+
+        is_mid = (kind == EVK_MID) | (kind == EVK_TRAIL)
+        bound_bad = (xp < bnd + aux) if left else (xp + aux > bnd)
+        m_act = alive & is_mid & ~bound_bad              # aux = exon_len
+        alive = alive & ~(is_mid & bound_bad)
+        succ = m_act & (curr["ed"] + ed <= eth)
+        alive = alive & ~(is_mid & ~succ)
+        c_mid = dict(pos=xp - aux if left else xp + aux, ed=curr["ed"] + ed,
+                     sclen=zero, indel=curr["indel"] - indel,
+                     qcov=curr["qcov"] + aux - indel, score=scr)
+        curr = {k: torch.where(succ, c_mid[k], curr[k]) for k in KEYS}
+        best = _fold_update_dir(best, curr, succ, max_ed, max_sc, left)
+        alive = alive & ~(kind == EVK_TRAIL)
+
+        is_end = (kind == EVK_END) | (kind == EVK_ENDND)
+        need = qlen - aux                                # aux = covered
+        e_bad = (xp < bnd + need) if left else (xp + need > bnd)
+        ok_geo = alive & is_end & ~e_bad
+        consec = consec | (ok_geo & (xp == pos))
+        dp_ok = ok_geo & (kind == EVK_END) \
+            & (curr["ed"] + ed <= eth) & (sclen <= max_sc) \
+            & (need - sclen >= sclen)
+        c_end = dict(pos=xp - need + indel if left else xp + need - indel,
+                     ed=curr["ed"] + ed, sclen=sclen,
+                     indel=curr["indel"] + indel, qcov=curr["qcov"] + need,
+                     score=scr)
+        curr = {k: torch.where(dp_ok, c_end[k], curr[k]) for k in KEYS}
+        best = _fold_update_score(best, curr, dp_ok, left)
+        alive = alive & ~is_end
+
+    def sc(v):
+        out = _scatter_pool(torch.where(mine, v.to(_i32), 0), inv,
+                            wk["n_act"], 4 * N)
+        return out[fam * N:(fam + 1) * N].reshape(shp3)
+
+    out_best = {k: sc(v) for k, v in best.items()}
+    out_consec = sc(consec) != 0
+    out_defer = sc(wk["lane_defer"] & mine) != 0
+    over4 = wk["over"].reshape(4, -1)[fam].reshape(shp3)
+    return out_best, out_consec, out_defer | over4
+
+
+def _fold_update_dir(best, cand, mask, max_ed, max_sc, left):
+    """AlignRes.update_right/left (_update_dir, extend.py:165-187)."""
+    gt = cand["qcov"] > best["qcov"]
+    lt = cand["qcov"] < best["qcov"]
+    ok_lim = (cand["ed"] <= max_ed) & (cand["sclen"] <= max_sc)
+    take_gt = gt & ok_lim & (2 * (cand["ed"] - best["ed"])
+                             < (cand["qcov"] - best["qcov"]))
+    take_lt = lt & ok_lim & (2 * (best["ed"] - cand["ed"])
+                             >= (best["qcov"] - cand["qcov"]))
+    pos_better = (cand["pos"] > best["pos"]) if left \
+        else (cand["pos"] < best["pos"])
+    eq = ~gt & ~lt
+    same_ed = cand["ed"] == best["ed"]
+    take_eq = eq & ((cand["ed"] < best["ed"])
+                    | (same_ed & (cand["sclen"] < best["sclen"]))
+                    | (same_ed & (cand["sclen"] == best["sclen"])
+                       & pos_better))
+    take = mask & (take_gt | take_lt | take_eq)
+    return {k: torch.where(take, cand[k], best[k]) for k in best}
+
+
+def _fold_update_score(best, cand, mask, left):
+    """AlignRes.update_by_score_right/left (extend.py:153-162)."""
+    pos_better = (cand["pos"] > best["pos"]) if left \
+        else (cand["pos"] < best["pos"])
+    better = (best["score"] < cand["score"]) | (
+        (best["score"] == cand["score"]) & pos_better)
+    take = mask & better
+    return {k: torch.where(take, cand[k], best[k]) for k in best}

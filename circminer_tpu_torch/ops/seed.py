@@ -7,7 +7,8 @@ through a composite binary search, optionally narrowed first by a radix
 prefix table; k-mers with more than ``seed_lim`` hits are dropped (count 0)
 and counted as high hits (reference match_read.cpp:54-286).  Slots follow
 the reference's ``GIMatchedKmer`` layout: non-overlapping k-mers on even
-slots, odd slots empty.
+slots, odd slots empty.  ``gather_seeds_device`` then reads up to ``cap``
+positions of each slot's range from the entry table.
 
 These are plain torch functions (the reference lowers them through XLA and
 has no Pallas twin); all integers are int32 as in the reference.
@@ -164,3 +165,19 @@ def lookup_batch_device(read_codes: torch.Tensor, read_lens: torch.Tensor,
 
     return (strided(qpos, -1), strided(left.to(_i32), 0), strided(cnt, 0),
             strided(high, False))
+
+
+def gather_seeds_device(entry_pos: torch.Tensor, start: torch.Tensor,
+                        count: torch.Tensor, *, cap: int):
+    """Gather up to ``cap`` sorted positions per (read, slot).
+
+    Returns int32 [B, n_slots, cap] positions (0 where masked) and the bool
+    mask ``offs < count``.  Indices past the table clamp to its last entry,
+    as the reference's clipped gather does.  Entries within a (hash,
+    checksum) range are position-sorted by construction, matching the
+    reference's introSortGI ordering (Sort.c)."""
+    offs = torch.arange(cap, dtype=_i32, device=start.device)
+    idx = torch.clamp(start[..., None] + offs, 0, entry_pos.shape[0] - 1)
+    pos = entry_pos[idx.long()].to(_i32)
+    mask = offs < count[..., None]
+    return torch.where(mask, pos, 0), mask

@@ -1,25 +1,33 @@
-"""Batched mapping pipeline on torch: device seed lookup and wave-batched
-device extension, with the shared host C++ chain and finish engines.
+"""Batched mapping pipeline on torch: device seed lookup, the dense chain DP,
+the fused device-full step and wave-batched device extension, with the
+shared host C++ chain and finish engines.
 
 Counterpart of the reference's ``DeviceMappingPipeline``
-(``circminer_tpu/pipeline/device_pipeline.py``), for the executors this
-slice ports:
+(``circminer_tpu/pipeline/device_pipeline.py``).  Executors:
 
   - ``chain_exec="device"``: the k-mer index lives on the torch device
     (``ContigDeviceState``); per batch one seed lookup runs there and only
     the small [R, 2*NL + 1] int32 (start | cnt | high-hit count) tensor
-    comes back, through a pinned buffer and a CUDA event.  Seed gather and
-    the sparse k-best chain DP run in host C++ (``NativeChainer``).
+    comes back.  Seed gather and the sparse k-best chain DP run in host C++
+    (``NativeChainer``).
+  - ``chain_exec="device-chain"``: lookup, seed gather and the dense chain
+    DP on the device, one call per occupancy bucket and row chunk; the
+    (dp10 | back) tensors come back and the k-best chains are extracted by
+    the host C++ ``NativeChainer.extract_batch``.
+  - ``chain_exec="device-full"``: the whole map step on the device
+    (``ops/device_full.py::device_full_step``); only the [B, MRF + 1]
+    MatchedRead state | defer bitmask comes back.  Reads with a defer bit
+    are replayed through the host C++ path.
   - ``chain_exec="native"``: lookup in host C++ as well.
   - ``extend_exec="native"``: extension + categories in the C++ finish
-    engine (``NativeFilter``).
-  - ``extend_exec="device"``: the per-read extension generators run in
-    lockstep and every wave of alignment requests is one fused dispatch of
-    the four DP kernels (``ops/align_device.py``).
+    engine (``NativeFilter``); ``"device"``: the per-read extension
+    generators run in lockstep and every wave of alignment requests is one
+    fused dispatch of the four DP kernels (``ops/align_device.py``).
 
-Batches are pipelined two deep as in the reference: the lookup of batch
-i+1 is on the device while the host finishes batch i.  All executors give
-bit-identical MatchedRead state.
+Every device result comes back through a pinned host buffer behind a CUDA
+event.  Batches are pipelined two deep as in the reference: the device
+work of batch i+1 is queued while the host finishes batch i.  All
+executors give bit-identical MatchedRead state.
 """
 
 from __future__ import annotations
@@ -34,33 +42,43 @@ import numpy as np
 import torch
 
 from circminer_tpu.config import Config, CHIBSJ, CHI2BSJ
+from circminer_tpu.ops.align import ScoreMat
 from circminer_tpu.io.fastq import RemainWriter, iter_remain_pairs
 from circminer_tpu.ops.chain_native import NativeChainer
 from circminer_tpu.ops.filter_native import NativeFilter
 from circminer_tpu.ops.seed_native import NativeSeeder
 from circminer_tpu.pipeline.extend_batch import run_waves
-from circminer_tpu.pipeline.mapping import Mapper
+from circminer_tpu.pipeline.mapping import Mapper, ReadRecord
 from circminer_tpu.pipeline.types import MatchedRead, round_skip
 from circminer_tpu.utils import logging as ulog
 from circminer_tpu.utils.timing import GLOBAL_TIMER as T
 
+from ..annotation.device import AnnoDevice, FinishAnnoDevice
 from ..device import resolve_device
 from ..ops.align_device import DeviceAlignService
+from ..ops.chain_device import gather_and_chain_device
+from ..ops.device_full import DEFER_CAUSES, device_full_step
 from ..ops.seed import build_device_prefix, lookup_batch_device
 
-CHAIN_EXECS = ("device", "native")
+CHAIN_EXECS = ("device", "device-chain", "device-full", "native")
 EXTEND_EXECS = ("device", "native")
+SEG_PAD = 16   # segments kept per annotation interval on the device
 
 
 @dataclasses.dataclass
 class ContigDeviceState:
-    """One contig's k-mer index on the torch device (10 B per entry)."""
+    """One contig's k-mer index on the torch device (10 B per entry) and,
+    for the executors that chain or finish there, its annotation tensors
+    and genome codes."""
     entry_hv: torch.Tensor          # int32 [n] window hash, ascending
     entry_checksum: torch.Tensor    # int16 [n], sorted within an hv group
     entry_pos: torch.Tensor         # int32 [n] 1-based k-mer positions
     entry_prefix: Optional[torch.Tensor]  # int32 [4^p + 1] radix offsets
     prefix_shift: int = 0
     prefix_iters: int = 1
+    anno: Optional[AnnoDevice] = None          # device-chain, device-full
+    fanno: Optional[FinishAnnoDevice] = None   # device-full
+    genome: Optional[torch.Tensor] = None      # int8 [G] codes, device-full
 
     @classmethod
     def from_contig_index(cls, ci, cfg: Config, device) -> "ContigDeviceState":
@@ -106,11 +124,32 @@ def encode_pairs(recs, max_read_len: int):
     return seqs, lens
 
 
+def to_host(t: torch.Tensor):
+    """Start the copy of a device result to the host: (pinned host tensor,
+    CUDA event to wait on).  A CPU tensor is returned as it is."""
+    if not t.is_cuda:
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def from_host(pending) -> np.ndarray:
+    host, event = pending
+    if event is not None:
+        event.synchronize()
+    return host.numpy()
+
+
 class DeviceMappingPipeline:
-    """chain_exec: "device" (lookup on the torch device) or "native" (host
-    C++ lookup); extend_exec: "device" (wave-batched DP kernels) or
-    "native" (C++ finish engine).  ``device`` is the torch device of the
-    device executors ("cuda" by default; "cpu" runs their plain versions)."""
+    """chain_exec: "device" (lookup on the torch device), "device-chain"
+    (lookup + chain DP there), "device-full" (the fused map step there) or
+    "native" (host C++ lookup); extend_exec: "device" (wave-batched DP
+    kernels) or "native" (C++ finish engine; device-full brings its own
+    finish).  ``device`` is the torch device of the device executors
+    ("cuda" by default; "cpu" runs their plain versions)."""
 
     def __init__(self, db, gi, cfg: Config, batch_size: int = 4096,
                  chain_exec: str = "device", extend_exec: str = "native",
@@ -121,25 +160,39 @@ class DeviceMappingPipeline:
         if extend_exec not in EXTEND_EXECS:
             raise ValueError(f"extend_exec must be one of {EXTEND_EXECS}, "
                              f"got {extend_exec!r}")
+        if chain_exec == "device-full" and extend_exec != "native":
+            raise ValueError("chain_exec='device-full' finishes on the "
+                             "device; it takes extend_exec='native' for its "
+                             "host replay")
         self.db = db
         self.gi = gi
         self.cfg = cfg
         self.batch = batch_size
         self.chain_exec = chain_exec
         self.extend_exec = extend_exec
-        uses_device = "device" in (chain_exec, extend_exec)
+        uses_device = chain_exec != "native" or extend_exec == "device"
         self.device = resolve_device(device) if uses_device else None
         self.align_svc = None
         self.wave_stats = {"waves": 0, "batches": 0}
+        self.full_stats = {"reads": 0, "deferred": 0, "causes": {}}
         if extend_exec == "device":
             self.align_svc = DeviceAlignService(cfg, device=self.device)
         self.states: List[Optional[ContigDeviceState]] = []
         self.seeders, self.mappers, self.chainers, self.filters = [], [], [], []
         for c, ci in enumerate(gi.contigs):
             self.seeders.append(NativeSeeder(ci, cfg))
-            self.states.append(
-                ContigDeviceState.from_contig_index(ci, cfg, self.device)
-                if chain_exec == "device" else None)
+            st = None
+            if chain_exec != "native":
+                st = ContigDeviceState.from_contig_index(ci, cfg, self.device)
+            if chain_exec in ("device-chain", "device-full"):
+                st.anno = AnnoDevice.from_contig(db.contigs[c], SEG_PAD,
+                                                 device=self.device)
+            if chain_exec == "device-full":
+                st.fanno = FinishAnnoDevice.from_contig(
+                    db.contigs[c], db.con2chr[c], SEG_PAD,
+                    device=self.device)
+                st.genome = torch.from_numpy(ci.codes).to(self.device)
+            self.states.append(st)
             self.mappers.append(Mapper(db, c, ci.codes, cfg, seeder=None))
             self.chainers.append(NativeChainer(db.contigs[c], cfg))
             self.filters.append(NativeFilter(db, c, ci.codes, cfg))
@@ -149,26 +202,21 @@ class DeviceMappingPipeline:
     def dispatch_lookup(self, recs, contig: int):
         """Encode a batch (4 rows per pair: r1, rc(r1), r2, rc(r2)) and start
         its seed lookup: on the device (asynchronous, result copied into a
-        pinned host buffer behind a CUDA event) or in host C++."""
+        pinned host buffer behind a CUDA event) or in host C++.  The
+        device-full executor starts its whole map step here."""
+        if self.chain_exec == "device-full":
+            return self._dispatch_full(recs, contig)
         with T.phase("encode"):
             seqs, lens = encode_pairs(recs, self.cfg.max_read_len)
-        if self.chain_exec == "device":
-            st = self.states[contig]
+        if self.chain_exec != "native":
             dev = self.device
             with T.phase("lookup_dispatch"):
                 packed = lookup_even(torch.from_numpy(seqs).to(dev),
-                                     torch.from_numpy(lens).to(dev), st,
-                                     self.cfg)
-                event = None
-                if packed.is_cuda:
-                    host = torch.empty(packed.shape, dtype=packed.dtype,
-                                       pin_memory=True)
-                    host.copy_(packed, non_blocking=True)
-                    event = torch.cuda.Event()
-                    event.record()
-                    packed = host
-            return dict(recs=recs, contig=contig, dev_lookup=packed,
-                        event=event, lens=lens, seqs=seqs)
+                                     torch.from_numpy(lens).to(dev),
+                                     self.states[contig], self.cfg)
+                pending = to_host(packed)
+            return dict(recs=recs, contig=contig, dev_lookup=pending,
+                        lens=lens, seqs=seqs)
         with T.phase("host_lookup"):
             qpos, start, cnt, high = self.seeders[contig].lookup(seqs, lens)
         return dict(recs=recs, contig=contig, qpos=qpos, start=start,
@@ -178,9 +226,7 @@ class DeviceMappingPipeline:
         """Wait for the device lookup and rewrite lf to the host layout.
         qpos is recomputed host-side (slot*k when the k-mer fits)."""
         with T.phase("lookup_fetch"):
-            if lf["event"] is not None:
-                lf["event"].synchronize()
-            packed_h = lf["dev_lookup"].numpy()       # [R, 2*NL + 1] int32
+            packed_h = from_host(lf["dev_lookup"])   # [R, 2*NL + 1] int32
         NL = self.n_lists
         k = self.cfg.kmer
         lens = lf["lens"]
@@ -191,11 +237,178 @@ class DeviceMappingPipeline:
                     high=packed_h[:, 2 * NL].copy(), lens=lens,
                     seqs=lf["seqs"])
 
-    # ---- stage 2: seed gather + sparse chain DP in host C++ ----
+    # ---- stage 2: seed gather + chain DP, on the device or in host C++ --
     def dispatch_chain(self, lf):
+        if lf.get("full"):
+            return lf
         if "dev_lookup" in lf:
             lf = self._fetch_lookup(lf)
+        if self.chain_exec == "device-chain":
+            return self._chain_device(lf)
         return self._chain_native(lf)
+
+    def _buckets(self, cnt_h):
+        """Rows grouped by their largest seed occupancy: (cap, rows) for
+        each bucket cap of ``_caps``, smallest first."""
+        maxocc = cnt_h.max(axis=1) if cnt_h.shape[1] > 0 else \
+            np.zeros(len(cnt_h), np.int32)
+        prev = 0
+        for cap in self._caps():
+            rows = np.nonzero((maxocc <= cap) & (maxocc > prev))[0] \
+                if prev else np.nonzero(maxocc <= cap)[0]
+            prev = cap
+            if len(rows):
+                yield cap, rows
+
+    def _chain_device(self, lf):
+        """Seed gather + dense chain DP on the device, one call per
+        occupancy bucket and row chunk; each call's int32 [R, NL, 2*cap]
+        (dp10 | back) result starts its copy to the host at once."""
+        cfg = self.cfg
+        st = self.states[lf["contig"]]
+        ad = st.anno
+        dev = self.device
+        qpos_h = np.maximum(lf["qpos"], 0)
+        cnt_h = lf["cnt"]
+        buckets = []
+        for cap, rows in self._buckets(cnt_h):
+            chunk = self._chunk_for(cap)
+            for c0 in range(0, len(rows), chunk):
+                sub = rows[c0:c0 + chunk]
+                with T.phase(f"chain_dispatch_cap{cap}"):
+                    def put(a):
+                        return torch.from_numpy(
+                            np.ascontiguousarray(a[sub])).to(dev)
+                    _, dp10, back = gather_and_chain_device(
+                        st.entry_pos, put(lf["start"]), put(cnt_h),
+                        put(qpos_h), put(lf["lens"]), ad.nb_bits,
+                        ad.iv_spos, ad.iv_epos, ad.iv_max_end,
+                        ad.iv_min_end, ad.iv_max_next, ad.iv_nseg,
+                        ad.seg_end, ad.seg_next, cap=cap, k=cfg.kmer,
+                        max_ed=cfg.max_ed, max_intron=cfg.max_intron,
+                        seg_pad=ad.seg_pad)
+                    pending = to_host(torch.cat([dp10, back], dim=-1))
+                buckets.append((sub, cap, pending))
+        return dict(recs=lf["recs"], contig=lf["contig"], buckets=buckets,
+                    cnt=cnt_h, qpos=qpos_h, hh=lf["high"], seqs=lf["seqs"],
+                    lens=lf["lens"], start=lf["start"])
+
+    def _extract_device_chains(self, cf):
+        """Fetch the device chain-DP results and extract the k-best chains
+        of every row with the host C++ extraction; returns cf in the
+        layout of ``_chain_native`` (per-bucket chain ``parts``)."""
+        cfg = self.cfg
+        seeder = self.seeders[cf["contig"]]
+        parts = []
+        for rows, cap, pending in cf["buckets"]:
+            with T.phase(f"chain_fetch_cap{cap}"):
+                blob = from_host(pending)
+            cnt_b = cf["cnt"][rows]
+            with T.phase(f"gather_cap{cap}"):
+                # positions re-gathered on the host from the shared table
+                pos_b = seeder.gather(cf["start"][rows],
+                                      np.minimum(cnt_b, cap), cap)
+            with T.phase(f"extract_cap{cap}"):
+                rp, qp, cl, sc, cn = NativeChainer.extract_batch(
+                    blob[..., :cap], blob[..., cap:], pos_b, cf["qpos"][rows],
+                    cnt_b, cfg.kmer, cfg.max_chain_len,
+                    n_threads=cfg.resolved_threads)
+            parts.append((rows, rp, qp, cl, sc, cn))
+        return dict(cf, parts=parts)
+
+    # ---- the fused device-full executor ------------------------------
+    def _full_statics(self):
+        """The fused step's static budgets: the reference's formulas, so
+        the port defers exactly the reads the reference defers."""
+        cfg = self.cfg
+        sm = ScoreMat()
+        B = self.batch
+        return dict(
+            k=cfg.kmer, cs_len=cfg.checksum_len, n_slots=cfg.max_seg_cnt,
+            seed_lim=cfg.seed_lim, cap=16, max_ed=cfg.max_ed,
+            max_sc=cfg.max_sc, band=cfg.band_width, max_tlen=cfg.max_tlen,
+            max_intron=cfg.max_intron, seg_pad=SEG_PAD,
+            scan_level=cfg.scan_level, KB=6, P_MAX=8, W_MAX=16,
+            OS_POOL=max(2048, B), XD_POOL=max(4096, 2 * B),
+            EX_ITERS=48, mat=sm.mat, mis=sm.mis, ind=sm.ind, xd=sm.xd,
+            EW=4, KSCAN=12, WPP=max(512, (3 * B) // 2),
+            MIDP=max(512, B // 8), ENDP=max(1024, B // 4),
+            # per-column seg tables only where an entry table is so large
+            # that the padded [rows, seg_pad] temporaries would not fit
+            seg_compact=max(c.entry_hv.shape[0]
+                            for c in self.gi.contigs) > 300_000_000)
+
+    def _dispatch_full(self, recs, contig: int):
+        """Start the fused step on one batch, rows padded to 4 * batch (the
+        pool budgets are sized for it); the [B, MRF + 1] result starts its
+        copy to the host at once."""
+        cfg = self.cfg
+        st = self.states[contig]
+        nf = self.filters[contig]
+        with T.phase("encode"):
+            seqs_h, lens_h = encode_pairs(recs, cfg.max_read_len)
+            seqs = np.zeros((4 * self.batch, cfg.max_read_len), np.int8)
+            lens = np.zeros(4 * self.batch, np.int32)
+            seqs[:len(seqs_h)], lens[:len(lens_h)] = seqs_h, lens_h
+        with T.phase("full_state"):
+            default_row = NativeFilter.mr_to_state(
+                MatchedRead.default(cfg.max_ed), nf.chr_names)
+            mr_in = np.tile(default_row, (self.batch, 1))
+            for i, (r1, _) in enumerate(recs):
+                if r1.mr.touched:
+                    mr_in[i] = NativeFilter.mr_to_state(r1.mr, nf.chr_names)
+            mr_in = np.ascontiguousarray(mr_in.astype(np.int32))
+        dev = self.device
+        with T.phase("full_dispatch"):
+            blob = device_full_step(
+                torch.from_numpy(seqs).to(dev), torch.from_numpy(lens).to(dev),
+                torch.from_numpy(mr_in).to(dev), st.entry_hv,
+                st.entry_checksum, st.entry_pos, st.genome, st.anno,
+                st.fanno, st.entry_prefix, contig_num=contig,
+                prefix_shift=st.prefix_shift, prefix_iters=st.prefix_iters,
+                **self._full_statics())
+            pending = to_host(blob)
+        return dict(recs=recs, contig=contig, full=pending, seqs=seqs_h,
+                    lens=lens_h)
+
+    def _finish_full(self, cf) -> None:
+        """Write the device results back; replay the deferred reads through
+        the host C++ lookup, chain and finish."""
+        recs = cf["recs"]
+        n = len(recs)
+        contig = cf["contig"]
+        nf = self.filters[contig]
+        with T.phase("full_fetch"):
+            blob = from_host(cf["full"])              # [B, MRF+1] int32
+        dbits = blob[:n, -1]
+        defer = dbits != 0
+        # per-cause histogram (a read may carry several cause bits)
+        causes = self.full_stats["causes"]
+        for i, name in enumerate(DEFER_CAUSES):
+            c = int(((dbits >> i) & 1).sum())
+            if c:
+                causes[name] = causes.get(name, 0) + c
+        mr_state = blob[:n, :-1].astype(np.int64)
+        with T.phase("full_writeback"):
+            for i, (r1, _) in enumerate(recs):
+                if not defer[i]:
+                    NativeFilter.state_to_mr(mr_state[i], r1.mr,
+                                             nf.chr_names)
+        idx = np.nonzero(defer)[0]
+        self.full_stats["reads"] += n
+        self.full_stats["deferred"] += len(idx)
+        if len(idx):
+            with T.phase("full_replay"):
+                rows = (4 * idx[:, None] + np.arange(4)).reshape(-1)
+                seqs = np.ascontiguousarray(cf["seqs"][rows])
+                lens = np.ascontiguousarray(cf["lens"][rows])
+                with T.phase("host_lookup"):
+                    qpos, start, cnt, high = self.seeders[contig].lookup(
+                        seqs, lens)
+                lf = dict(recs=[recs[i] for i in idx], contig=contig,
+                          seqs=seqs, lens=lens, qpos=qpos, start=start,
+                          cnt=cnt, high=high)
+                self._finish_native(self._chain_native(lf))
 
     def _chain_native(self, lf):
         """Gather + multithreaded C++ chain DP, occupancy-bucketed so the
@@ -204,16 +417,8 @@ class DeviceMappingPipeline:
         chainer = self.chainers[lf["contig"]]
         cnt_h = lf["cnt"]
         qpos_h = np.maximum(lf["qpos"], 0)
-        maxocc = cnt_h.max(axis=1) if cnt_h.shape[1] > 0 else \
-            np.zeros(len(cnt_h), np.int32)
         parts = []
-        prev = 0
-        for cap in self._caps():
-            rows = np.nonzero((maxocc <= cap) & (maxocc > prev))[0] \
-                if prev else np.nonzero(maxocc <= cap)[0]
-            prev = cap
-            if len(rows) == 0:
-                continue
+        for cap, rows in self._buckets(cnt_h):
             with T.phase(f"gather_cap{cap}"):
                 pos_b = seeder.gather(lf["start"][rows],
                                       np.minimum(cnt_h[rows], cap), cap)
@@ -227,6 +432,10 @@ class DeviceMappingPipeline:
 
     # ---- stage 3: extension + categories ----
     def finish(self, cf) -> None:
+        if cf.get("full"):
+            return self._finish_full(cf)
+        if "buckets" in cf:
+            cf = self._extract_device_chains(cf)
         if self.extend_exec == "device":
             return self._finish_wave(cf)
         return self._finish_native(cf)
@@ -334,6 +543,15 @@ class DeviceMappingPipeline:
             caps = list(caps) + [self.cfg.seed_lim]
         return caps
 
+    def _chunk_for(self, cap: int) -> int:
+        """Row chunk of one device chain-DP call, bounding its working set
+        (the transition tensors peak at [cap, cap, chunk] int32)."""
+        if cap <= 16:
+            return 4 * self.batch
+        if cap <= 128:
+            return 2048
+        return 128
+
     # ---- streaming with 2-deep software pipelining ----
     def map_stream(self, pairs: Iterable[Tuple[object, object]], out=None,
                    remain=None, conloc=None, contig: int = 0,
@@ -430,12 +648,30 @@ class DeviceMappingPipeline:
 
     def warmup(self):
         """Build and load the device code before the streamed region: one
-        lookup at the full batch shape and one wave of every DP kind."""
+        wave of every DP kind, one lookup at the full batch shape, one chain
+        call per occupancy bucket, or one fused step on an empty batch."""
         if self.align_svc is not None:
             self.align_svc.warm()
-        if self.chain_exec == "device":
-            R = 4 * self.batch
-            reads = torch.zeros((R, self.cfg.max_read_len), dtype=torch.int8,
-                                device=self.device)
-            lens = torch.zeros(R, dtype=torch.int32, device=self.device)
-            lookup_even(reads, lens, self.states[0], self.cfg).cpu()
+        if self.chain_exec == "device-full":
+            z = np.zeros(0, np.int8)
+            recs = [(ReadRecord("w", z, z, "", 0,
+                                MatchedRead.default(self.cfg.max_ed)),
+                     ReadRecord("w", z, z, "", 0, None))]
+            from_host(self._dispatch_full(recs, 0)["full"])
+            return
+        if self.chain_exec == "native":
+            return
+        R = 4 * self.batch
+        L, NL = self.cfg.max_read_len, self.n_lists
+        dev = self.device
+        reads = torch.zeros((R, L), dtype=torch.int8, device=dev)
+        lens = torch.zeros(R, dtype=torch.int32, device=dev)
+        lookup_even(reads, lens, self.states[0], self.cfg).cpu()
+        if self.chain_exec == "device-chain":
+            z = np.zeros((1, NL), np.int32)
+            lf = dict(recs=[], contig=0, qpos=z, start=z, cnt=z,
+                      high=z[:, 0], lens=np.full(1, L, np.int32), seqs=None)
+            for cap in self._caps():
+                lf["cnt"] = np.full((1, NL), cap, np.int32)
+                for *_, pending in self._chain_device(lf)["buckets"]:
+                    from_host(pending)

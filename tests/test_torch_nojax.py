@@ -140,6 +140,33 @@ def test_cli_without_jax_matches_reference_cli(dataset):
     assert (d / "ref.circ_report").stat().st_size > 0
 
 
+@pytest.fixture(scope="module")
+def native_outputs(dataset):
+    """The reference CLI's --device native outputs on the dataset."""
+    d = dataset
+    _run(["--index", "-r", "ref.fa", "-k", "20"], d, RUN_CLI)
+    _run(["-m", "circminer_tpu.cli", "-r", "ref.fa", "-g", "ref.gtf", "-1",
+          "R1.fq", "-2", "R2.fq", "--pam", "-o", "native", "--device",
+          "native"], d)
+    return {s: (d / ("native" + s)).read_bytes()
+            for s in (".circ_report", ".mapping.pam")}
+
+
+@pytest.mark.parametrize("device,tag", [("gpu-chain", "mapping done"),
+                                        ("gpu-full", "device-full: 200 reads")])
+def test_cli_without_jax_chain_and_full_match_native(dataset, native_outputs,
+                                                     device, tag):
+    """The device-chain and fused device-full executors through the port's
+    CLI with jax blocked (64-pair batches keep the CPU run short)."""
+    d = dataset
+    res = _run(["-r", "ref.fa", "-g", "ref.gtf", "-1", "R1.fq", "-2",
+                "R2.fq", "--pam", "-o", device, "--device", device,
+                "--torch-device", "cpu", "--batch-size", "64"], d, RUN_CLI)
+    assert tag in res.stderr
+    for suffix, want in native_outputs.items():
+        assert (d / (device + suffix)).read_bytes() == want, suffix
+
+
 def test_cli_refuses_what_is_not_ported(dataset, capsys):
     from circminer_tpu_torch.cli import main
     d = str(dataset)

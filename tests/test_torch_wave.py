@@ -120,7 +120,9 @@ def test_no_silent_fallback_to_cpu(sim):
             DeviceMappingPipeline(db, gi, cfg, chain_exec="device",
                                   device="cuda")
     with pytest.raises(ValueError, match="chain_exec"):
+        DeviceMappingPipeline(db, gi, cfg, chain_exec="auto", device="cpu")
+    with pytest.raises(ValueError, match="device-full"):
         DeviceMappingPipeline(db, gi, cfg, chain_exec="device-full",
-                              device="cpu")
+                              extend_exec="device", device="cpu")
     with pytest.raises(ValueError, match="extend_exec"):
         DeviceMappingPipeline(db, gi, cfg, extend_exec="auto", device="cpu")
