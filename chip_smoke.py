@@ -31,16 +31,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   7. one device_full_step on the first 256 pairs on the card (kernels) and
      on the CPU (plain versions) with the same statics: the raw int32
      [B, MRF + 1] blobs bit-equal;
-  8. the port's CLI (--index, then --device gpu-wave, gpu-chain, gpu-full
-     and native) on a small synthetic dataset: circ_report and mapping.pam
-     byte-equal.
+  8. stage 2 of the gpu-full path on the card: the BSJ pairs of the
+     phase-6 map (sorted as bench.py sorts them) through the port's
+     ProcessCirc.run(device_ext=True) (speculate-and-select waves on the
+     four DP kernels): circ_res and candidate lines equal to the host native
+     stage 2, edit_sc launched; both wall times and the device / host
+     request counts reported;
+  9. the auto executor: its probe on the card under a fresh decision cache
+     (CIRCMINER_CACHE_DIR), the measured detail and the choice; a second
+     pipeline takes the choice from the cache without probing;
+ 10. single-end mapping of the 16,384 R1 reads (map_stream_se) with the
+     device, device-chain, device-full and auto executors: every read's
+     MatchedRead equal to native's; reads/s per executor;
+ 11. the port's CLI (--index, then paired-end --device gpu-wave, gpu-chain,
+     gpu-full (traced with --trace-dir) and native, single-end -s with
+     --device auto, gpu-full and native) on a small synthetic dataset:
+     circ_report, mapping.pam and candidates.pam byte-equal to native, and
+     the trace names cm.walk_waves and a hand kernel;
+ 12. the port's bench (python -m circminer_tpu_torch.bench --smoke) with
+     --exec gpu-full --circ-device --repeat 2 and with --exec native: one
+     JSON line each, the reference bench's keys, equal events.
 
 The port shares the reference package's host-only modules (simulator, index
 build, annotation, extension generators, C++ engines); nothing of JAX is
 imported, and the run checks that at the end.  The last stdout line is
 {"ok": true, "device": {...}}; the line before it carries the card's name
-and power limit, and the one before that the per-kernel JSON (launches of
-edit_sc from the gpu-wave run, of the other three from the gpu-full run).
+and power limit, and the one before that the per-kernel JSON (launches on
+the gpu-full path: the map of phase 6 plus its stage 2 in phase 8, each
+counted from zero).
 """
 
 import copy
@@ -54,7 +72,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED_GENOME, SEED_READS = 20260817, 20260818
 KERNEL_SOURCE = "circminer_tpu_torch/csrc/align_kernels.cu"
-FULL_KERNELS = ("xdrop", "one_side", "edit_end")   # on the gpu-full path
+FULL_KERNELS = ("xdrop", "one_side", "edit_end")   # in the gpu-full map
+# the keys of every line of the reference bench (bench.py:329-343)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "executor",
+              "backend", "n_pairs", "genome_len", "events", "true_events",
+              "events_matched", "phases"}
 REPLACES = {
     "xdrop": "circminer_tpu/ops/pallas_align.py:406",      # _xdrop_kernel
     "edit_sc": "circminer_tpu/ops/pallas_align.py:182",    # _edit_sc_kernel
@@ -336,7 +358,8 @@ def run_slice(cfg, gi, db, reads, chain_exec, extend_exec, device,
     check(n == len(reads), f"mapped {n} of {len(reads)} pairs")
     return dict(keys=[mr_key(p[0].mr) for p in pairs],
                 events=sorted({(c.spos, c.epos) for c in pc.circ_res}),
-                map_s=map_s, circ_s=circ_s, pipe=pipe, n=n, bsj=len(bsj))
+                map_s=map_s, circ_s=circ_s, pipe=pipe, n=n, bsj=len(bsj),
+                bsj_pairs=bsj)
 
 
 def phase_slice(cfg, gi, db, reads, truth, device, batch=4096):
@@ -542,10 +565,160 @@ def phase_step_vs_plain(cfg, gi, db, reads, full, n_pairs=256):
 
 
 # --------------------------------------------------------------------------
-# phase 8: the CLI
+# phases 8-10: stage 2 on the card, auto, single-end
 # --------------------------------------------------------------------------
 
-def phase_cli(torch_device="cuda", genome_len=100_000, n_reads=1000):
+def circ_key(c):
+    return (c.chr, c.rname, c.spos, c.epos, c.type, c.start_signal,
+            c.end_signal, c.start_bp_ref, c.end_bp_ref)
+
+
+def phase_stage2(cfg, gi, db, full, device):
+    """Stage 2 of the gpu-full map's BSJ pairs on the card against the host
+    native stage 2; returns the kernel launches of the device run."""
+    from circminer_tpu.pipeline.circ import ProcessCirc as HostProcessCirc
+    from circminer_tpu_torch.ops import _ext
+    from circminer_tpu_torch.pipeline.circ import ProcessCirc
+    bsj = full["bsj_pairs"]
+    with tempfile.TemporaryDirectory() as tmp:
+        host = HostProcessCirc(db, gi, cfg, os.path.join(tmp, "host"))
+        t0 = time.perf_counter()
+        host.run(list(bsj))
+        host_s = time.perf_counter() - t0
+        card = ProcessCirc(db, gi, cfg, os.path.join(tmp, "card"),
+                           device=device)
+        _ext.reset_launches()
+        t0 = time.perf_counter()
+        card.run(list(bsj), device_ext=True)
+        torch_sync(device)
+        card_s = time.perf_counter() - t0
+        launches = dict(_ext.LAUNCHES)
+    got = [circ_key(c) for c in card.circ_res]
+    want = [circ_key(c) for c in host.circ_res]
+    if got != want:
+        first = next((a, b) for a, b in zip(got + [None], want + [None])
+                     if a != b)
+        raise SmokeFailure(f"stage 2 on the card differs from the host: "
+                           f"{len(got)} vs {len(want)} circ_res, first "
+                           f"differing {first}")
+    check(card.candid_lines == host.candid_lines,
+          f"stage-2 candidate lines differ: {len(card.candid_lines)} vs "
+          f"{len(host.candid_lines)}")
+    check(len(want) > 0, "stage 2 called no circRNA read")
+    check(launches["edit_sc"] > 0, "edit_sc was not launched by stage 2")
+    st = card.dev_align_stats
+    log(f"[stage2] {len(bsj)} BSJ pairs: card {card_s:.3f} s (device "
+        f"extension), host native {host_s:.3f} s; {len(want)} circ_res and "
+        f"{len(host.candid_lines)} candidate lines equal; dev_align_stats "
+        f"{st}; launches {launches}")
+    return launches, dict(card_s=card_s, host_s=host_s, stats=st)
+
+
+def torch_sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def phase_auto(cfg, gi, db, device, batch=4096):
+    """The auto probe on the card under the current (fresh) decision cache,
+    then a second pipeline that must take the choice from the cache."""
+    from circminer_tpu_torch.pipeline.device_pipeline import (
+        DeviceMappingPipeline)
+
+    def auto():
+        return DeviceMappingPipeline(db, gi, cfg, batch_size=batch,
+                                     chain_exec="auto", device=device)
+    pipe = auto()
+    path, key = pipe._decision_cache_path()
+    check(not os.path.exists(path), f"decision cache not fresh: {path}")
+    t0 = time.perf_counter()
+    pipe.warmup()
+    probe_s = time.perf_counter() - t0
+    choice = pipe.chain_exec
+    with open(path) as f:
+        rec = json.load(f)
+    check(rec.get("key") == key and rec.get("executor") == choice,
+          f"cached decision {rec} does not match the probe's {choice}")
+    log(f"[auto] probe on the card ({probe_s:.2f} s with warm-up) -> "
+        f"{choice}; detail {json.dumps(rec)}")
+
+    def no_probe():
+        raise SmokeFailure("the second auto pipeline probed again")
+    again = auto()
+    again._probe_decision = no_probe
+    again.warmup()
+    check(again.chain_exec == choice, f"cached choice {again.chain_exec} "
+          f"differs from the probe's {choice}")
+    log(f"[auto] a second pipeline took {choice} from the cache")
+    return rec
+
+
+def make_se(reads, cfg):
+    from circminer_tpu.ops.encode import encode_seq, revcomp
+    from circminer_tpu.pipeline.mapping import ReadRecord
+    from circminer_tpu.pipeline.types import MatchedRead
+    out = []
+    for r in reads:
+        s1 = encode_seq(r.r1)
+        out.append(ReadRecord(r.name, s1, revcomp(s1), "I" * len(r.r1),
+                              len(r.r1), MatchedRead.default(cfg.max_ed)))
+    return out
+
+
+def phase_se(cfg, gi, db, reads, device, batch=4096):
+    """map_stream_se of the R1 reads under every executor against native;
+    returns reads/s per executor."""
+    from circminer_tpu_torch.pipeline.device_pipeline import (
+        DeviceMappingPipeline)
+    keys, rates = {}, {}
+    for ex in ("native", "device", "device-chain", "device-full", "auto"):
+        pipe = DeviceMappingPipeline(db, gi, cfg, batch_size=batch,
+                                     chain_exec=ex, device=device)
+        pipe.warmup()
+        recs = make_se(reads, cfg)
+        t0 = time.perf_counter()
+        n = pipe.map_stream_se(iter(recs))
+        torch_sync(device)
+        dt = time.perf_counter() - t0
+        check(n == len(reads), f"SE {ex}: mapped {n} of {len(reads)} reads")
+        keys[ex] = [mr_key(r.mr) for r in recs]
+        rates[ex] = n / dt
+        tag = f"auto ({pipe.chain_exec})" if ex == "auto" else ex
+        log(f"[se] {tag}: {n} reads in {dt:.3f} s ({rates[ex]:.1f} reads/s)")
+    for ex, k in keys.items():
+        diff = [i for i, (a, b) in enumerate(zip(k, keys["native"]))
+                if a != b]
+        check(not diff, f"SE {ex} differs from native on {len(diff)} reads, "
+              f"first {diff[:3]}: {[k[i] for i in diff[:2]]} vs "
+              f"{[keys['native'][i] for i in diff[:2]]}")
+    conc = sum(1 for k in keys["native"] if k[0] == 0)
+    log(f"[se] device, device-chain, device-full and auto equal native on "
+        f"all {len(reads)} reads ({conc} concordant)")
+    return rates
+
+
+# --------------------------------------------------------------------------
+# phase 11: the CLI
+# --------------------------------------------------------------------------
+
+def trace_names(trace_dir, names):
+    """Which of ``names`` the gzipped Chrome trace in ``trace_dir`` holds
+    (a text search: the trace runs to hundreds of MB)."""
+    import gzip
+    files = os.listdir(trace_dir)
+    check(len(files) == 1 and files[0].endswith(".trace.json.gz"),
+          f"--trace-dir wrote {files}")
+    path = os.path.join(trace_dir, files[0])
+    found = set()
+    with gzip.open(path, "rt") as f:
+        for chunk in iter(lambda: f.read(1 << 24), ""):
+            found |= {n for n in names if n in chunk}
+    return found, os.path.getsize(path)
+
+
+def phase_cli(torch_device="cuda", genome_len=100_000, n_reads=1000,
+              batch=4096):
     import numpy as np
     from circminer_tpu.sim import make_genome, simulate_reads, write_fastq
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
@@ -570,25 +743,93 @@ def phase_cli(torch_device="cuda", genome_len=100_000, n_reads=1000):
                   f"({res.returncode}):\n{res.stderr[-3000:]}")
             return res.stderr
 
-        cli("--index", "-r", "ref.fa", "-k", "20")
-        common = ["-r", "ref.fa", "-g", "ref.gtf", "-1", "R1.fq", "-2",
-                  "R2.fq", "--pam", "--torch-device", torch_device]
-        cli(*common, "-o", "native", "--device", "native")
-        for dev in ("gpu-wave", "gpu-chain", "gpu-full"):
-            err = cli(*common, "-o", dev, "--device", dev)
-            for suffix in (".circ_report", ".mapping.pam"):
-                with open(os.path.join(d, dev + suffix), "rb") as f:
+        def same(tag, ref, suffixes):
+            for suffix in suffixes:
+                with open(os.path.join(d, tag + suffix), "rb") as f:
                     a = f.read()
-                with open(os.path.join(d, "native" + suffix), "rb") as f:
+                with open(os.path.join(d, ref + suffix), "rb") as f:
                     b = f.read()
-                check(a == b, f"CLI {suffix}: {dev} and native differ")
-                check(len(a) > 0 or suffix == ".circ_report",
-                      f"CLI {suffix} is empty")
+                check(a == b, f"CLI {suffix}: {tag} and {ref} differ")
+                check(len(a) > 0, f"CLI {ref}{suffix} is empty")
+
+        cli("--index", "-r", "ref.fa", "-k", "20")
+        common = ["-r", "ref.fa", "-g", "ref.gtf", "--pam", "--torch-device",
+                  torch_device, "--batch-size", str(batch)]
+        pe = common + ["-1", "R1.fq", "-2", "R2.fq"]
+        cli(*pe, "-o", "native", "--device", "native")
+        for dev in ("gpu-wave", "gpu-chain", "gpu-full"):
+            trace = ["--trace-dir", "trace"] if dev == "gpu-full" else []
+            err = cli(*pe, "-o", dev, "--device", dev, *trace)
+            same(dev, "native", (".circ_report", ".mapping.pam",
+                                 ".candidates.pam"))
             info = [ln.strip() for ln in err.splitlines()
-                    if "wave engine" in ln or "device-full:" in ln]
-            log(f"[cli] {n_reads} pairs: circ_report and mapping.pam of "
-                f"--device {dev} byte-equal to --device native "
-                f"{info[0] if info else ''}")
+                    if "wave engine" in ln or "device-full:" in ln
+                    or "stage-2 device" in ln]
+            log(f"[cli] {n_reads} pairs: circ_report, mapping.pam and "
+                f"candidates.pam of --device {dev} byte-equal to --device "
+                f"native; {'; '.join(info)}")
+        want = {"cm.walk_waves", "xdrop_kernel", "edit_sc_kernel",
+                "edit_end_kernel", "one_side_kernel"}
+        found, size = trace_names(os.path.join(d, "trace"), want)
+        check("cm.walk_waves" in found and len(found) > 1,
+              f"the gpu-full trace names only {sorted(found)} of "
+              f"{sorted(want)}")
+        log(f"[cli] --trace-dir: {size} B gzipped Chrome trace naming "
+            f"{sorted(found)}")
+        se = common + ["-s", "R1.fq"]
+        cli(*se, "-o", "se_native", "--device", "native")
+        for dev in ("auto", "gpu-full"):
+            err = cli(*se, "-o", f"se_{dev}", "--device", dev)
+            same(f"se_{dev}", "se_native", (".mapping.pam",))
+            info = [ln.strip() for ln in err.splitlines()
+                    if "auto executor" in ln]
+            log(f"[cli] -s {n_reads} reads: mapping.pam of --device {dev} "
+                f"byte-equal to --device native {'; '.join(info)}")
+
+
+# --------------------------------------------------------------------------
+# phase 12: the bench
+# --------------------------------------------------------------------------
+
+def phase_bench(device, size=()):
+    """The port's bench in its smoke configuration (``size`` cuts it
+    further): gpu-full with the stage-2 device extension, two repeats,
+    against native, on ``device``."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+
+    def bench(*args):
+        cmd = [sys.executable, "-m", "circminer_tpu_torch.bench", "--smoke",
+               "--torch-device", device.type, *size, *args]
+        res = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                             text=True, timeout=600)
+        check(res.returncode == 0, f"{' '.join(cmd)} failed "
+              f"({res.returncode}):\n{res.stderr[-3000:]}")
+        last = res.stdout.strip().splitlines()[-1]
+        try:
+            rec = json.loads(last)
+        except ValueError:
+            raise SmokeFailure(f"bench printed no JSON last line: {last!r}")
+        log(f"[bench] {' '.join(args)}: {last}")
+        return rec
+
+    full = bench("--exec", "gpu-full", "--circ-device", "--repeat", "2")
+    native = bench("--exec", "native")
+    for tag, rec, extra in (
+            ("gpu-full", full, {"runs", "spread_pct", "deferred_pct",
+                                "defer_causes"}),
+            ("native", native, set())):
+        check(set(rec) == BENCH_KEYS | extra,
+              f"bench {tag} keys {sorted(rec)}")
+    check(full["backend"] == device.type and full["executor"] == "gpu-full",
+          f"bench ran {full['executor']} on {full['backend']}")
+    check((full["events"], full["events_matched"])
+          == (native["events"], native["events_matched"]) and
+          full["events"] > 0,
+          f"bench events: gpu-full {full['events']}/"
+          f"{full['events_matched']}, native {native['events']}/"
+          f"{native['events_matched']}")
+    return full, native
 
 
 # --------------------------------------------------------------------------
@@ -624,14 +865,21 @@ def main() -> int:
         kern = phase_kernels(device)
         cfg, gi, db, reads, truth = chr21_setup()
         lookup_ms = phase_lookup(cfg, gi, reads, device)
-        launches, wave, native = phase_slice(cfg, gi, db, reads, truth,
-                                             device)
+        _, wave, native = phase_slice(cfg, gi, db, reads, truth, device)
         chain = phase_chain(cfg, gi, db, reads, native, device)
         full, full_launches, full_m = phase_full(cfg, gi, db, reads, native,
                                                  device)
-        launches.update({k: full_launches[k] for k in FULL_KERNELS})
         phase_step_vs_plain(cfg, gi, db, reads, full)
-        phase_cli()
+        s2_launches, s2 = phase_stage2(cfg, gi, db, full, device)
+        launches = {k: full_launches[k] + s2_launches[k] for k in REPLACES}
+        with tempfile.TemporaryDirectory() as cache:
+            # the auto phases and the CLI probe into a fresh decision cache
+            os.environ["CIRCMINER_CACHE_DIR"] = cache
+            auto = phase_auto(cfg, gi, db, device)
+            se_rates = phase_se(cfg, gi, db, reads, device)
+            phase_cli()
+            os.environ.pop("CIRCMINER_CACHE_DIR")
+        bench_full, bench_native = phase_bench(device)
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "jaxlib")))
         check(not leaked, f"JAX modules were imported: {leaked[:5]}")
@@ -649,6 +897,11 @@ def main() -> int:
         f"{full_m['step_ms']:.1f} ms/batch, device busy "
         f"{100.0 * full_m['busy'] / full_m['wall']:.2f}%; gpu-chain "
         f"{rates(chain)}; gpu-wave {rates(wave)}; native {rates(native)}; "
+        f"stage 2 on the card {s2['card_s']:.3f} s vs host "
+        f"{s2['host_s']:.3f} s; SE reads/s "
+        f"{ {k: round(v, 1) for k, v in se_rates.items()} }; auto -> "
+        f"{auto['executor']}; bench gpu-full {bench_full['value']} vs "
+        f"native {bench_native['value']} reads/s; "
         f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,

@@ -5,18 +5,23 @@ port's executors:
 
     python -m circminer_tpu_torch.cli --index -r ref.fa -k 20
     python -m circminer_tpu_torch.cli -r ref.fa -g ref.gtf -1 R1.fq -2 R2.fq \\
-        -o out --pam --device gpu-wave [--torch-device cuda|cpu]
+        -o out --pam [--device auto] [--torch-device cuda|cpu]
+    python -m circminer_tpu_torch.cli -r ref.fa -g ref.gtf -s R.fq -o out --pam
 
-``--device``: ``gpu`` = seed lookup on the torch device, chaining and the
-finish in host C++; ``gpu-chain`` = lookup and chain DP on the device,
-k-best extraction and the finish in host C++; ``gpu-full`` = the whole map
-step on the device (the fused device-full step), deferred reads replayed in
-host C++; ``gpu-wave`` = device lookup plus wave-batched extension on the
-hand-written DP kernels; ``native`` = everything in host C++.
-``--torch-device`` picks the torch device of the device executors (``cuda``
-by default; ``cpu`` runs their plain torch versions).  Stage 2 (circRNA
-calling) is the shared host C++ engine.  Not ported yet: single-end mapping
-(-s), multi-host runs, --trace-dir and the stage-2 device extension.
+``--device``: ``auto`` (default) = ``gpu`` or ``native``, whichever a short
+probe at start-up (or its cached result, or ``CIRCMINER_EXECUTOR``) finds
+faster on this host; ``gpu`` = seed lookup on the torch device, chaining
+and the finish in host C++; ``gpu-chain`` = lookup and chain DP on the
+device, k-best extraction and the finish in host C++; ``gpu-full`` = the
+whole map step on the device (the fused device-full step), deferred reads
+replayed in host C++, and the stage-2 extension DPs on the device too;
+``gpu-wave`` = device lookup plus wave-batched extension on the
+hand-written DP kernels; ``native`` = everything in host C++; ``host`` =
+the per-read Python oracle.  ``--torch-device`` picks the torch device of
+the device executors (``cuda`` by default; ``cpu`` runs their plain torch
+versions).  ``--trace-dir`` (or ``CIRCMINER_TRACE_DIR``) writes a
+torch.profiler Chrome trace of the search stages.  Not ported yet:
+multi-host runs.
 """
 
 from __future__ import annotations
@@ -27,10 +32,13 @@ from typing import List
 
 from circminer_tpu.cli import build_parser as _reference_parser
 from circminer_tpu.cli import config_from_args, run_index
-from circminer_tpu.config import PAMFORMAT, SAMFORMAT
+from circminer_tpu.config import (CHI2BSJ, CHIBSJ, CONCRD, PAMFORMAT,
+                                  SAMFORMAT)
 
-# --device -> (chain_exec, extend_exec) of the port's pipeline
-EXECUTORS = {"gpu": ("device", "native"),
+# --device -> (chain_exec, extend_exec) of the port's pipeline; "host" (the
+# per-read oracle) runs no pipeline
+EXECUTORS = {"auto": ("auto", "native"),
+             "gpu": ("device", "native"),
              "gpu-chain": ("device-chain", "native"),
              "gpu-full": ("device-full", "native"),
              "gpu-wave": ("device", "device"),
@@ -43,44 +51,61 @@ def build_parser() -> argparse.ArgumentParser:
         prog="circminer-torch",
         description="circRNA detection, PyTorch + CUDA port of circminer-tpu",
         parents=[_reference_parser()], conflict_handler="resolve")
-    p.add_argument("--device", choices=sorted(EXECUTORS), default="gpu",
-                   help="mapping executor: gpu = seed lookup on the torch "
-                        "device, chain + finish in host C++ (default); "
+    p.add_argument("--device", choices=sorted(EXECUTORS) + ["host"],
+                   default="auto",
+                   help="mapping executor: auto = gpu or native, picked by "
+                        "a start-up probe (default); gpu = seed lookup on "
+                        "the torch device, chain + finish in host C++; "
                         "gpu-chain = lookup + chain DP on the device; "
-                        "gpu-full = the fused map step on the device; "
-                        "gpu-wave = device lookup + wave-batched extension "
-                        "on the CUDA DP kernels; native = all host C++")
+                        "gpu-full = the fused map step and the stage-2 "
+                        "extension DPs on the device; gpu-wave = device "
+                        "lookup + wave-batched extension on the CUDA DP "
+                        "kernels; native = all host C++; host = per-read "
+                        "Python oracle")
     p.add_argument("--batch-size", type=int, default=4096,
-                   help="read pairs per device batch (the fused gpu-full "
-                        "step sizes its DP pools from it)")
+                   help="reads or read pairs per device batch (the fused "
+                        "gpu-full step sizes its DP pools from it)")
     p.add_argument("--torch-device", choices=["cuda", "cpu"], default="cuda",
                    help="torch device of the device executors (cpu runs "
                         "their plain torch versions)")
+    p.add_argument("--trace-dir",
+                   help="write a torch.profiler Chrome trace of the search "
+                        "stages here (also CIRCMINER_TRACE_DIR)")
     return p
 
 
-def _unported(args, cfg) -> str:
-    if not cfg.paired_end:
-        return ("single-end mapping (-s) is not ported to circminer_tpu_torch "
-                "yet; use circminer_tpu.cli for single-end reads")
+def _unported(args) -> str:
     if args.coordinator or (args.num_hosts or 1) > 1:
         return "multi-host runs are not ported to circminer_tpu_torch yet"
-    if args.trace_dir:
-        return "--trace-dir is not ported to circminer_tpu_torch yet"
     return ""
 
 
 def run_search(args, cfg) -> int:
+    from .utils.timing import device_trace
+    with device_trace(args.trace_dir):
+        return _run_search_stages(args, cfg)
+
+
+def _host_mappers(db, gi, cfg, n_contigs):
+    from circminer_tpu.pipeline.mapping import Mapper
+    from .ops.seed_host import make_host_seeder
+    return [Mapper(db, c, gi.contigs[c].codes, cfg,
+                   make_host_seeder(gi.contigs[c], cfg))
+            for c in range(n_contigs)]
+
+
+def _run_search_stages(args, cfg) -> int:
     import os
     from circminer_tpu.annotation.annotation import AnnotationDB
     from circminer_tpu.config import Config
     from circminer_tpu.index.build import load_genome_index
     from circminer_tpu.io.fasta import GenomePacker, chrloc2conloc
-    from circminer_tpu.io.fastq import (RemainWriter, iter_sorted_remain,
-                                        read_pairs)
-    from circminer_tpu.pipeline.circ import ProcessCirc
+    from circminer_tpu.io.fastq import (FastqReader, RemainWriter,
+                                        iter_sorted_remain, read_pairs)
     from circminer_tpu.pipeline.output import SamOutput
+    from circminer_tpu.pipeline.types import round_skip
     from circminer_tpu.utils.logging import set_trace_level
+    from .pipeline.circ import ProcessCirc
     from .pipeline.device_pipeline import DeviceMappingPipeline
 
     set_trace_level(args.verbosity)
@@ -102,6 +127,42 @@ def run_search(args, cfg) -> int:
     fmt = {SAMFORMAT: "sam", PAMFORMAT: "pam"}.get(cfg.report_mapping)
     last_round = n_contigs
 
+    def pipeline(chain_exec, extend_exec):
+        pipe = DeviceMappingPipeline(db, gi, cfg, batch_size=args.batch_size,
+                                     chain_exec=chain_exec,
+                                     extend_exec=extend_exec,
+                                     device=args.torch_device)
+        pipe.warmup()
+        return pipe
+
+    if not cfg.paired_end:
+        # single-end (filter.cpp:86-121; circminer.cpp:399-402); no circ
+        # stage: back-splice evidence needs a paired full mate
+        out = SamOutput(args.output, fmt, info)
+        if args.device != "host":
+            # SE has no wave finish: gpu-wave maps as auto, as in the
+            # reference
+            chain_exec = ("auto" if args.device == "gpu-wave"
+                          else EXECUTORS[args.device][0])
+            pipe = pipeline(chain_exec, "native")
+            n = pipe.map_stream_se(FastqReader(args.seq, cfg), out, fmt)
+        else:
+            mappers = _host_mappers(db, gi, cfg, n_contigs)
+            n = 0
+            for rec in FastqReader(args.seq, cfg):
+                for mapper in mappers:
+                    state = mapper.process_read_se(rec)
+                    if cfg.scan_level == 0 and state == CONCRD:
+                        break
+                if fmt == "sam":
+                    out.write_sam_se(rec)
+                elif fmt == "pam":
+                    out.write_pam_se(rec)
+                n += 1
+        out.close()
+        print(f"[INFO] SE mapping done: {n} reads", file=sys.stderr)
+        return 0
+
     if cfg.stage != 1:
         out = SamOutput(args.output, fmt, info)
         remain = RemainWriter(args.output, last_round)
@@ -116,25 +177,39 @@ def run_search(args, cfg) -> int:
                 r1.ordinal = k
                 yield r1, r2
 
-        chain_exec, extend_exec = EXECUTORS[args.device]
-        pipe = DeviceMappingPipeline(db, gi, cfg, batch_size=args.batch_size,
-                                     chain_exec=chain_exec,
-                                     extend_exec=extend_exec,
-                                     device=args.torch_device)
-        pipe.warmup()
-        n = pipe.map_stream_all_contigs(pairs_with_ordinal(), out, remain,
-                                        conloc)
-        if pipe.wave_stats["batches"]:
-            ws, sv = pipe.wave_stats, pipe.align_svc
-            print(f"[INFO] wave engine: {ws['waves']} waves over "
-                  f"{ws['batches']} batch(es), {sv.n_dispatch} dispatches, "
-                  f"{sv.n_device} device / {sv.n_host} host requests",
-                  file=sys.stderr)
-        fs = pipe.full_stats
-        if fs["reads"]:
-            print(f"[INFO] device-full: {fs['reads']} reads, "
-                  f"{fs['deferred']} deferred to the host "
-                  f"{dict(sorted(fs['causes'].items()))}", file=sys.stderr)
+        if args.device != "host":
+            pipe = pipeline(*EXECUTORS[args.device])
+            n = pipe.map_stream_all_contigs(pairs_with_ordinal(), out,
+                                            remain, conloc)
+            if pipe.wave_stats["batches"]:
+                ws, sv = pipe.wave_stats, pipe.align_svc
+                print(f"[INFO] wave engine: {ws['waves']} waves over "
+                      f"{ws['batches']} batch(es), {sv.n_dispatch} "
+                      f"dispatches, {sv.n_device} device / {sv.n_host} host "
+                      f"requests", file=sys.stderr)
+            fs = pipe.full_stats
+            if fs["reads"]:
+                print(f"[INFO] device-full: {fs['reads']} reads, "
+                      f"{fs['deferred']} deferred to the host "
+                      f"{dict(sorted(fs['causes'].items()))}",
+                      file=sys.stderr)
+        else:
+            mappers = _host_mappers(db, gi, cfg, n_contigs)
+            n = 0
+            for rec1, rec2 in pairs_with_ordinal():
+                # every contig in one pass; the per-round skip keeps the
+                # scanLevel 0 and 1 semantics (circminer.cpp:386-394)
+                for mapper in mappers:
+                    mapper.process_read_pe(rec1, rec2)
+                    if round_skip(rec1.mr, rec1.seq_len, rec2.seq_len,
+                                  cfg.scan_level):
+                        break
+                if fmt:
+                    out.write_pam_pe(rec1, rec2) if fmt == "pam" else \
+                        out.write_sam_pe(rec1, rec2)
+                if rec1.mr.type in (CHIBSJ, CHI2BSJ):
+                    remain.write(rec1, rec2, rec1.mr, conloc)
+                n += 1
         out.close()
         remain.close()
         print(f"[INFO] mapping done: {n} pairs", file=sys.stderr)
@@ -144,14 +219,17 @@ def run_search(args, cfg) -> int:
             f"{args.output}_{last_round}_remain_R1.fastq",
             f"{args.output}_{last_round}_remain_R2.fastq", cfg,
             internal=cfg.internal_sort)
-        pc = ProcessCirc(db, gi, cfg, args.output)
-        # stage-2 extension runs in the shared host C++ engine; its device
-        # form (which the reference's tpu-full turns on) is a later port
-        if args.device == "gpu-full":
-            print("[INFO] stage 2 runs on the host: the stage-2 device "
-                  "extension is not ported to circminer_tpu_torch yet",
-                  file=sys.stderr)
-        pc.run(recs, device_ext=False)
+        # gpu-full also runs the stage-2 extension DPs on the device
+        # (speculate-and-select waves), as the reference's tpu-full does
+        device_ext = args.device == "gpu-full"
+        pc = ProcessCirc(db, gi, cfg, args.output,
+                         device=args.torch_device if device_ext else "cpu")
+        pc.run(recs, device_ext=device_ext)
+        if device_ext:
+            st = pc.dev_align_stats
+            print(f"[INFO] stage-2 device extension: {st['n_dispatch']} "
+                  f"dispatches, {st['n_device']} device / {st['n_host']} "
+                  f"host requests", file=sys.stderr)
         pc.report_events(args.output + ".circ_report")
         pc.write_candidates(args.output + ".candidates.pam")
         print(f"[INFO] circRNA detection done: {len(pc.circ_res)} candidate "
@@ -165,12 +243,13 @@ def main(argv: List[str] = None) -> int:
     if args.index:
         return run_index(args, cfg)
     if not args.gtf or (not args.seq and not args.seq1):
-        print("error: search mode needs -g and -1/-2", file=sys.stderr)
+        print("error: search mode needs -g and -1/-2 (or -s)",
+              file=sys.stderr)
         return 1
     if args.batch_size < 1:
         print("error: --batch-size must be at least 1", file=sys.stderr)
         return 1
-    why = _unported(args, cfg)
+    why = _unported(args)
     if why:
         print(f"error: {why}", file=sys.stderr)
         return 2

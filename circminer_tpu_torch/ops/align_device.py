@@ -22,6 +22,7 @@ from typing import List
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from circminer_tpu.ops import align as al
 
@@ -186,11 +187,14 @@ def wave_all_batch(s, t, n, m, wv, *, w, max_ed, max_sc, mat, mis, ind, xd,
 
     Each row's caller reads only its own kind's columns.  On the card this
     is the four CUDA kernels; on the CPU their plain versions."""
-    return _wave_stack(
-        edit_sc_batch(s, t, n, m, w=w, max_ed=max_ed, max_sc=max_sc, I=I),
-        xdrop_batch(s, t, n, m, w=w, mat=mat, mis=mis, ind=ind, xd=xd, I=I),
-        edit_end_batch(s, t, n, m, w=w, max_ed=max_ed, I=I),
-        one_side_batch(s, t, n, m, wv, I=I))
+    with record_function("cm.wave_all"):
+        return _wave_stack(
+            edit_sc_batch(s, t, n, m, w=w, max_ed=max_ed, max_sc=max_sc,
+                          I=I),
+            xdrop_batch(s, t, n, m, w=w, mat=mat, mis=mis, ind=ind, xd=xd,
+                        I=I),
+            edit_end_batch(s, t, n, m, w=w, max_ed=max_ed, I=I),
+            one_side_batch(s, t, n, m, wv, I=I))
 
 
 # --------------------------------------------------------------------------

@@ -19,6 +19,10 @@ Counterpart of the reference's ``DeviceMappingPipeline``
     MatchedRead state | defer bitmask comes back.  Reads with a defer bit
     are replayed through the host C++ path.
   - ``chain_exec="native"``: lookup in host C++ as well.
+  - ``chain_exec="auto"``: ``warmup`` picks ``device`` or ``native`` from
+    ``CIRCMINER_EXECUTOR``, else a cached decision, else a probe that
+    weighs the measured device-to-host fetch of one lookup result against
+    one timed host C++ lookup (the reference's ``_probe_decision``).
   - ``extend_exec="native"``: extension + categories in the C++ finish
     engine (``NativeFilter``); ``"device"``: the per-read extension
     generators run in lockstep and every wave of alignment requests is one
@@ -28,20 +32,34 @@ Every device result comes back through a pinned host buffer behind a CUDA
 event.  Batches are pipelined two deep as in the reference: the device
 work of batch i+1 is queued while the host finishes batch i.  All
 executors give bit-identical MatchedRead state.
+
+Single-end reads (``map_stream_se``, 2 rows per read: fwd, rc) take the
+reference's routing: ``device`` and ``auto`` look the seeds up on the
+device and chain in host C++; ``device-chain`` runs lookup and chain DP on
+the device; ``device-full`` looks up in host C++ and runs the chain DP on
+the device (the fused step is paired-end only); ``native`` is all host.
+Every SE batch finishes in ``NativeFilter.filter_se`` (the per-read Python
+finish under ``-d >= 1``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import os
 import shutil
+import socket
+import sys
 import tempfile
+import time
 from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from circminer_tpu.config import Config, CHIBSJ, CHI2BSJ
+from circminer_tpu.config import Config, CHIBSJ, CHI2BSJ, CONCRD
 from circminer_tpu.ops.align import ScoreMat
 from circminer_tpu.io.fastq import RemainWriter, iter_remain_pairs
 from circminer_tpu.ops.chain_native import NativeChainer
@@ -60,8 +78,9 @@ from ..ops.chain_device import gather_and_chain_device
 from ..ops.device_full import DEFER_CAUSES, device_full_step
 from ..ops.seed import build_device_prefix, lookup_batch_device
 
-CHAIN_EXECS = ("device", "device-chain", "device-full", "native")
+CHAIN_EXECS = ("auto", "device", "device-chain", "device-full", "native")
 EXTEND_EXECS = ("device", "native")
+AUTO_CHOICES = ("device", "native")   # what "auto" resolves to
 SEG_PAD = 16   # segments kept per annotation interval on the device
 
 
@@ -103,13 +122,14 @@ def lookup_even(reads: torch.Tensor, lens: torch.Tensor,
     """Device seed lookup over the even (non-overlapping) k-mer slots as one
     int32 [R, 2*NL + 1] tensor: start | cnt | high-hit count.  qpos is not
     returned: it is slot*k where the k-mer fits, recomputed on the host."""
-    _, start, cnt, high = lookup_batch_device(
-        reads, lens, st.entry_hv, st.entry_checksum, st.entry_prefix,
-        k=cfg.kmer, cs_len=cfg.checksum_len, n_slots=cfg.max_seg_cnt,
-        seed_lim=cfg.seed_lim, prefix_shift=st.prefix_shift,
-        prefix_iters=st.prefix_iters)
-    hh = high[:, ::2].sum(dim=1, dtype=torch.int32)
-    return torch.cat([start[:, ::2], cnt[:, ::2], hh[:, None]], dim=1)
+    with record_function("cm.lookup"):
+        _, start, cnt, high = lookup_batch_device(
+            reads, lens, st.entry_hv, st.entry_checksum, st.entry_prefix,
+            k=cfg.kmer, cs_len=cfg.checksum_len, n_slots=cfg.max_seg_cnt,
+            seed_lim=cfg.seed_lim, prefix_shift=st.prefix_shift,
+            prefix_iters=st.prefix_iters)
+        hh = high[:, ::2].sum(dim=1, dtype=torch.int32)
+        return torch.cat([start[:, ::2], cnt[:, ::2], hh[:, None]], dim=1)
 
 
 def encode_pairs(recs, max_read_len: int):
@@ -121,6 +141,18 @@ def encode_pairs(recs, max_read_len: int):
         for o, s in enumerate((r1.seq, r1.rcseq, r2.seq, r2.rcseq)):
             seqs[4 * i + o, :len(s)] = s
             lens[4 * i + o] = len(s)
+    return seqs, lens
+
+
+def encode_se(recs, max_read_len: int):
+    """2 rows per read (fwd, rc; the SE layout, filter.cpp:86-121): int8
+    [2n, max_read_len] codes and int32 [2n] lengths."""
+    seqs = np.zeros((2 * len(recs), max_read_len), dtype=np.int8)
+    lens = np.zeros(2 * len(recs), dtype=np.int32)
+    for i, r in enumerate(recs):
+        for o, s in enumerate((r.seq, r.rcseq)):
+            seqs[2 * i + o, :len(s)] = s
+            lens[2 * i + o] = len(s)
     return seqs, lens
 
 
@@ -145,8 +177,9 @@ def from_host(pending) -> np.ndarray:
 
 class DeviceMappingPipeline:
     """chain_exec: "device" (lookup on the torch device), "device-chain"
-    (lookup + chain DP there), "device-full" (the fused map step there) or
-    "native" (host C++ lookup); extend_exec: "device" (wave-batched DP
+    (lookup + chain DP there), "device-full" (the fused map step there),
+    "native" (host C++ lookup) or "auto" (device or native, picked at
+    warmup); extend_exec: "device" (wave-batched DP
     kernels) or "native" (C++ finish engine; device-full brings its own
     finish).  ``device`` is the torch device of the device executors
     ("cuda" by default; "cpu" runs their plain versions)."""
@@ -173,10 +206,9 @@ class DeviceMappingPipeline:
         uses_device = chain_exec != "native" or extend_exec == "device"
         self.device = resolve_device(device) if uses_device else None
         self.align_svc = None
-        self.wave_stats = {"waves": 0, "batches": 0}
-        self.full_stats = {"reads": 0, "deferred": 0, "causes": {}}
         if extend_exec == "device":
             self.align_svc = DeviceAlignService(cfg, device=self.device)
+        self.reset_stats()
         self.states: List[Optional[ContigDeviceState]] = []
         self.seeders, self.mappers, self.chainers, self.filters = [], [], [], []
         for c, ci in enumerate(gi.contigs):
@@ -198,17 +230,29 @@ class DeviceMappingPipeline:
             self.filters.append(NativeFilter(db, c, ci.codes, cfg))
         self.n_lists = cfg.n_kmer_lists
 
+    def reset_stats(self) -> None:
+        """Zero the run statistics: wave engine, device-full deferrals and
+        the wave service's request counters."""
+        self.wave_stats = {"waves": 0, "batches": 0}
+        self.full_stats = {"reads": 0, "deferred": 0, "causes": {}}
+        if self.align_svc is not None:
+            sv = self.align_svc
+            sv.n_dispatch = sv.n_device = sv.n_host = 0
+
     # ---- stage 1: encode + lookup dispatch ----
-    def dispatch_lookup(self, recs, contig: int):
-        """Encode a batch (4 rows per pair: r1, rc(r1), r2, rc(r2)) and start
-        its seed lookup: on the device (asynchronous, result copied into a
-        pinned host buffer behind a CUDA event) or in host C++.  The
-        device-full executor starts its whole map step here."""
-        if self.chain_exec == "device-full":
+    def dispatch_lookup(self, recs, contig: int, rpr: int = 4):
+        """Encode a batch (rpr = rows per record: 4 for pairs, r1, rc(r1),
+        r2, rc(r2); 2 for single reads, fwd, rc) and start its seed lookup:
+        on the device (asynchronous, result copied into a pinned host buffer
+        behind a CUDA event) or in host C++.  The device-full executor
+        starts its whole map step here for pairs; single reads take the host
+        lookup there."""
+        if self.chain_exec == "device-full" and rpr == 4:
             return self._dispatch_full(recs, contig)
+        enc = encode_pairs if rpr == 4 else encode_se
         with T.phase("encode"):
-            seqs, lens = encode_pairs(recs, self.cfg.max_read_len)
-        if self.chain_exec != "native":
+            seqs, lens = enc(recs, self.cfg.max_read_len)
+        if self.chain_exec in ("auto", "device", "device-chain"):
             dev = self.device
             with T.phase("lookup_dispatch"):
                 packed = lookup_even(torch.from_numpy(seqs).to(dev),
@@ -216,11 +260,11 @@ class DeviceMappingPipeline:
                                      self.states[contig], self.cfg)
                 pending = to_host(packed)
             return dict(recs=recs, contig=contig, dev_lookup=pending,
-                        lens=lens, seqs=seqs)
+                        lens=lens, seqs=seqs, rpr=rpr)
         with T.phase("host_lookup"):
             qpos, start, cnt, high = self.seeders[contig].lookup(seqs, lens)
         return dict(recs=recs, contig=contig, qpos=qpos, start=start,
-                    cnt=cnt, high=high, lens=lens, seqs=seqs)
+                    cnt=cnt, high=high, lens=lens, seqs=seqs, rpr=rpr)
 
     def _fetch_lookup(self, lf):
         """Wait for the device lookup and rewrite lf to the host layout.
@@ -235,7 +279,7 @@ class DeviceMappingPipeline:
         return dict(recs=lf["recs"], contig=lf["contig"], qpos=qpos,
                     start=packed_h[:, :NL], cnt=packed_h[:, NL:2 * NL],
                     high=packed_h[:, 2 * NL].copy(), lens=lens,
-                    seqs=lf["seqs"])
+                    seqs=lf["seqs"], rpr=lf["rpr"])
 
     # ---- stage 2: seed gather + chain DP, on the device or in host C++ --
     def dispatch_chain(self, lf):
@@ -243,7 +287,7 @@ class DeviceMappingPipeline:
             return lf
         if "dev_lookup" in lf:
             lf = self._fetch_lookup(lf)
-        if self.chain_exec == "device-chain":
+        if self.chain_exec in ("device-chain", "device-full"):
             return self._chain_device(lf)
         return self._chain_native(lf)
 
@@ -291,7 +335,8 @@ class DeviceMappingPipeline:
                 buckets.append((sub, cap, pending))
         return dict(recs=lf["recs"], contig=lf["contig"], buckets=buckets,
                     cnt=cnt_h, qpos=qpos_h, hh=lf["high"], seqs=lf["seqs"],
-                    lens=lf["lens"], start=lf["start"])
+                    lens=lf["lens"], start=lf["start"],
+                    rpr=lf.get("rpr", 4))
 
     def _extract_device_chains(self, cf):
         """Fetch the device chain-DP results and extract the k-best chains
@@ -428,12 +473,14 @@ class DeviceMappingPipeline:
             parts.append((rows, rp, qp, cl, sc, n))
         return dict(recs=lf["recs"], contig=lf["contig"], parts=parts,
                     cnt=cnt_h, qpos=qpos_h, hh=lf["high"], seqs=lf["seqs"],
-                    lens=lf["lens"])
+                    lens=lf["lens"], rpr=lf.get("rpr", 4))
 
     # ---- stage 3: extension + categories ----
     def finish(self, cf) -> None:
         if cf.get("full"):
             return self._finish_full(cf)
+        if cf["rpr"] == 2:
+            return self._finish_se(cf)
         if "buckets" in cf:
             cf = self._extract_device_chains(cf)
         if self.extend_exec == "device":
@@ -536,6 +583,100 @@ class DeviceMappingPipeline:
                                                      cfg.kmer)
                     quad.append((chains, int(hh_h[r])))
                 mapper.process_read_pe(r1, r2, tuple(quad))
+
+    # ---- single-end batched pipeline (filter.cpp:86-121) ----
+    def _assemble_chains(self, cf, R: int):
+        """Stack the per-bucket chain results (host C++ chains, or the
+        device chain DP's extracted on the host) into dense [R, C, NL]
+        arrays."""
+        if "buckets" in cf:
+            cf = self._extract_device_chains(cf)
+        C, NL = self.cfg.max_chain_len, self.n_lists
+        rp_f = np.zeros((R, C, NL), np.int32)
+        qp_f = np.zeros((R, C, NL), np.int32)
+        cl_f = np.zeros((R, C), np.int32)
+        sc_f = np.zeros((R, C), np.float64)
+        cn_f = np.zeros(R, np.int32)
+        for rows, rp, qp, cl, sc, cn in cf["parts"]:
+            rp_f[rows] = rp
+            qp_f[rows] = qp
+            cl_f[rows] = cl
+            sc_f[rows] = sc
+            cn_f[rows] = cn
+        return rp_f, qp_f, cl_f, sc_f, cn_f
+
+    def _finish_se(self, cf) -> None:
+        """SE finish: extend fwd then rc chains per read, first CONCRD wins
+        (the batched form of Mapper.process_read_se)."""
+        cfg = self.cfg
+        recs = cf["recs"]
+        n = len(recs)
+        R = cf["rpr"] * n
+        nf = self.filters[cf["contig"]]
+        rp_f, qp_f, cl_f, sc_f, cn_f = self._assemble_chains(cf, R)
+        if ulog.TRACE_LEVEL < 1:
+            with T.phase("filter_state"):
+                default_row = NativeFilter.mr_to_state(
+                    MatchedRead.default(cfg.max_ed), nf.chr_names)
+                mr_state = np.tile(default_row, (n, 1))
+                for i, r in enumerate(recs):
+                    if r.mr is not None and r.mr.touched:
+                        mr_state[i] = NativeFilter.mr_to_state(r.mr,
+                                                               nf.chr_names)
+                mr_state = np.ascontiguousarray(mr_state)
+            with T.phase("filter_native_se"):
+                nf.filter_se(cf["seqs"][:R], cf["lens"][:R], rp_f, qp_f,
+                             cl_f, sc_f, cn_f, mr_state)
+            with T.phase("filter_writeback"):
+                for i, r in enumerate(recs):
+                    if r.mr is not None and mr_state[i][0] == CONCRD:
+                        NativeFilter.state_to_mr(mr_state[i], r.mr,
+                                                 nf.chr_names)
+            return
+        # -d >= 1: the Python finish carries the per-read trace channel
+        mapper = self.mappers[cf["contig"]]
+        k = cfg.kmer
+        with T.phase("host_finish"):
+            for i, r in enumerate(recs):
+                if cfg.scan_level == 0 and r.mr is not None \
+                        and r.mr.type == CONCRD:
+                    continue
+                fc = NativeChainer.to_chains(rp_f[2 * i], qp_f[2 * i],
+                                             cl_f[2 * i], sc_f[2 * i],
+                                             cn_f[2 * i], k)
+                bc = NativeChainer.to_chains(rp_f[2 * i + 1], qp_f[2 * i + 1],
+                                             cl_f[2 * i + 1], sc_f[2 * i + 1],
+                                             cn_f[2 * i + 1], k)
+                mapper.process_read_se(r, ((fc, 0), (bc, 0)))
+
+    def map_stream_se(self, reads: Iterable[ReadRecord], out=None,
+                      fmt: Optional[str] = None) -> int:
+        """Batched SE mapping over every contig (the batched form of the
+        reference's per-round SE loop, circminer.cpp:398-402)."""
+        n_total = 0
+        n_contigs = len(self.states)
+
+        def flush(buf):
+            if not buf:
+                return 0
+            for c in range(n_contigs):
+                self.finish(self.dispatch_chain(
+                    self.dispatch_lookup(buf, c, rpr=2)))
+            for rec in buf:
+                if out is not None and fmt == "sam":
+                    out.write_sam_se(rec)
+                elif out is not None and fmt == "pam":
+                    out.write_pam_se(rec)
+            return len(buf)
+
+        buf = []
+        for rec in reads:
+            buf.append(rec)
+            if len(buf) >= self.batch:
+                n_total += flush(buf)
+                buf = []
+        n_total += flush(buf)
+        return n_total
 
     def _caps(self):
         caps = [c for c in self.cfg.seed_buckets if c <= self.cfg.seed_lim]
@@ -646,12 +787,122 @@ class DeviceMappingPipeline:
             else:
                 self._emit_pair(r1, r2, out, remain, conloc)
 
+    # ---- executor auto-selection: env, decision cache, or a short probe --
+    def _decision_cache_path(self):
+        dev = self.device
+        name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        key = (f"{socket.gethostname()}|{dev.type}|{name}|{self.batch}|"
+               f"{self.n_lists}")
+        h = hashlib.sha1(key.encode()).hexdigest()[:16]
+        root = os.environ.get("CIRCMINER_CACHE_DIR",
+                              os.path.expanduser("~/.cache/circminer_tpu"))
+        return os.path.join(root, f"executor_{h}.json"), key
+
+    def _cached_decision(self) -> Optional[str]:
+        path, key = self._decision_cache_path()
+        try:
+            with open(path) as f:
+                rec = json.load(f)
+        except (OSError, ValueError):
+            return None
+        if isinstance(rec, dict) and rec.get("key") == key \
+                and rec.get("executor") in AUTO_CHOICES:
+            return rec["executor"]
+        return None
+
+    def _store_decision(self, executor: str, detail: dict) -> None:
+        path, key = self._decision_cache_path()
+        try:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w") as f:
+                json.dump({"key": key, "executor": executor, **detail}, f)
+        except OSError as e:
+            sys.stderr.write(f"[pipeline] auto executor: decision not "
+                             f"cached ({e})\n")
+
+    def _fetch_seconds(self, shape) -> float:
+        """Wall seconds of one copy of a fresh int8 device tensor of
+        ``shape`` into a pinned host buffer, waited for with
+        torch.cuda.synchronize()."""
+        dev = self.device
+        cuda = dev.type == "cuda"
+        host = torch.empty(shape, dtype=torch.int8, pin_memory=cuda)
+        x = torch.ones(shape, dtype=torch.int8, device=dev)
+        host.copy_(x)   # the first transfer of this shape, untimed
+        y = x + 1       # a fresh buffer for the timed copy
+        if cuda:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        host.copy_(y, non_blocking=cuda)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    def _probe_decision(self) -> str:
+        """Pick device vs host lookup in well under a second (the
+        reference's probe): two device-to-host fetch sizes separate latency
+        from bandwidth, which estimate the per-batch fetch of the
+        [4B, 2NL+1] int32 lookup result; one timed host C++ lookup of 4B
+        rows is the other side.  The decision is cached unless the torch
+        device is the CPU."""
+        sizes = [(512, 128), (4096, 256)]  # 64 KB, 1 MB
+        t1, t2 = (self._fetch_seconds(s) for s in sizes)
+        b1, b2 = (s[0] * s[1] for s in sizes)
+        # guard against timing variance making the slope estimate collapse
+        if t2 > 1.05 * t1:
+            bw = (b2 - b1) / (t2 - t1)               # bytes/s
+        else:
+            bw = b2 / max(t2, 1e-6)
+        bw = max(bw, 1e5)
+        lat = max(t1 - b1 / bw, 1e-4)
+        # the reference's per-batch compute allowance (1 ms) + one fetch
+        payload = 4 * self.batch * (2 * self.n_lists + 1) * 4
+        est_dev = 1e-3 + lat + payload / bw
+        R = 4 * self.batch
+        reads_h = np.zeros((R, self.cfg.max_read_len), np.int8)
+        lens_h = np.full(R, self.cfg.max_read_len, np.int32)
+        t0 = time.perf_counter()
+        self.seeders[0].lookup(reads_h, lens_h)
+        host_s = time.perf_counter() - t0
+        choice = "device" if est_dev < host_s else "native"
+        detail = dict(d2h_bw_mbps=round(bw / 1e6, 1),
+                      d2h_lat_ms=round(lat * 1e3, 2),
+                      est_device_ms=round(est_dev * 1e3, 1),
+                      host_ms=round(host_s * 1e3, 1))
+        sys.stderr.write(
+            f"[pipeline] auto executor: d2h {detail['d2h_bw_mbps']} MB/s "
+            f"lat {detail['d2h_lat_ms']} ms -> est device lookup "
+            f"{detail['est_device_ms']} ms vs host {detail['host_ms']} ms "
+            f"per batch -> {choice}\n")
+        if self.device.type != "cpu":
+            self._store_decision(choice, detail)
+        return choice
+
+    def _auto_choice(self) -> str:
+        """``CIRCMINER_EXECUTOR`` (device|native), else the cached decision
+        for this host, card, batch and read length, else the probe."""
+        forced = os.environ.get("CIRCMINER_EXECUTOR")
+        if forced:
+            if forced not in AUTO_CHOICES:
+                raise ValueError(f"CIRCMINER_EXECUTOR must be one of "
+                                 f"{AUTO_CHOICES}, got {forced!r}")
+            choice, src = forced, "env"
+        else:
+            choice, src = self._cached_decision(), "cache"
+        if choice is None:
+            return self._probe_decision()
+        sys.stderr.write(f"[pipeline] auto executor: {choice} (from {src})\n")
+        return choice
+
     def warmup(self):
         """Build and load the device code before the streamed region: one
         wave of every DP kind, one lookup at the full batch shape, one chain
-        call per occupancy bucket, or one fused step on an empty batch."""
+        call per occupancy bucket, or one fused step on an empty batch.
+        The "auto" executor becomes "device" or "native" here."""
         if self.align_svc is not None:
             self.align_svc.warm()
+        if self.chain_exec == "auto":
+            self.chain_exec = self._auto_choice()
         if self.chain_exec == "device-full":
             z = np.zeros(0, np.int8)
             recs = [(ReadRecord("w", z, z, "", 0,

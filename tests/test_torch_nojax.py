@@ -2,10 +2,14 @@
 
 A subprocess blocks every ``jax`` import with a ``sys.meta_path`` finder,
 imports every module of circminer_tpu_torch, and runs the port's CLI on the
-CPU on a small make_synthetic-style dataset (index, gpu-wave mapping, stage
-2).  Its circ_report and mapping.pam must be byte-equal to those of the
-reference CLI (``circminer_tpu.cli --device native``) on the same inputs."""
+CPU on a small make_synthetic-style dataset (index, paired-end mapping
+under each executor, stage 2 on the host or the device; single-end
+mapping; a --trace-dir run).  Its outputs must be byte-equal to those of
+the reference CLI (``circminer_tpu.cli --device native``) on the same
+inputs."""
 
+import gzip
+import json
 import os
 import pkgutil
 import re
@@ -85,10 +89,13 @@ def test_port_sources_never_import_jax():
 def test_every_port_module_imports_without_jax(tmp_path):
     res = _run([], tmp_path, IMPORT_ALL)
     n = int(res.stdout.split("IMPORTED")[1])
-    mods = [m for m in pkgutil.walk_packages(circminer_tpu_torch.__path__,
-                                             "circminer_tpu_torch.")
-            if not m.name.endswith("__main__")]
+    mods = [m.name for m in pkgutil.walk_packages(
+        circminer_tpu_torch.__path__, "circminer_tpu_torch.")
+        if not m.name.endswith("__main__")]
     assert n == len(mods) >= 10
+    assert {f"circminer_tpu_torch.{m}" for m in (
+        "bench", "pipeline.circ", "ops.seed_host", "utils.timing")} <= \
+        set(mods)
 
 
 def test_port_loads_no_jax_where_jax_is_installed(tmp_path, dataset):
@@ -149,7 +156,7 @@ def native_outputs(dataset):
           "R1.fq", "-2", "R2.fq", "--pam", "-o", "native", "--device",
           "native"], d)
     return {s: (d / ("native" + s)).read_bytes()
-            for s in (".circ_report", ".mapping.pam")}
+            for s in (".circ_report", ".mapping.pam", ".candidates.pam")}
 
 
 @pytest.mark.parametrize("device,tag", [("gpu-chain", "mapping done"),
@@ -157,22 +164,88 @@ def native_outputs(dataset):
 def test_cli_without_jax_chain_and_full_match_native(dataset, native_outputs,
                                                      device, tag):
     """The device-chain and fused device-full executors through the port's
-    CLI with jax blocked (64-pair batches keep the CPU run short)."""
+    CLI with jax blocked (64-pair batches keep the CPU run short); gpu-full
+    also runs the stage-2 extension DPs on the torch device."""
     d = dataset
     res = _run(["-r", "ref.fa", "-g", "ref.gtf", "-1", "R1.fq", "-2",
                 "R2.fq", "--pam", "-o", device, "--device", device,
                 "--torch-device", "cpu", "--batch-size", "64"], d, RUN_CLI)
     assert tag in res.stderr
+    assert ("stage-2 device extension" in res.stderr) == \
+        (device == "gpu-full")
     for suffix, want in native_outputs.items():
         assert (d / (device + suffix)).read_bytes() == want, suffix
 
 
+@pytest.fixture(scope="module")
+def native_se_output(dataset):
+    """The reference CLI's single-end --device native mapping of R1.fq."""
+    d = dataset
+    _run(["--index", "-r", "ref.fa", "-k", "20"], d, RUN_CLI)
+    _run(["-m", "circminer_tpu.cli", "-r", "ref.fa", "-g", "ref.gtf", "-s",
+          "R1.fq", "--pam", "-o", "native_se", "--device", "native"], d)
+    out = (d / "native_se.mapping.pam").read_bytes()
+    assert out.count(b"\n") == 200
+    return out
+
+
+@pytest.mark.parametrize("device", ["gpu-full", "auto", "host"])
+def test_cli_single_end_matches_reference(dataset, native_se_output, device):
+    """-s through the port's CLI with jax blocked: gpu-full (host lookup,
+    device chain DP), auto (device or native, probed) and host (the
+    per-read oracle) byte-equal to the reference's native SE mapping."""
+    d = dataset
+    res = _run(["-r", "ref.fa", "-g", "ref.gtf", "-s", "R1.fq", "--pam",
+                "-o", f"se_{device}", "--device", device, "--torch-device",
+                "cpu", "--batch-size", "64"], d, RUN_CLI)
+    assert "SE mapping done: 200 reads" in res.stderr
+    if device == "auto":
+        assert "auto executor: d2h" in res.stderr
+    assert (d / f"se_{device}.mapping.pam").read_bytes() == native_se_output
+
+
+def test_cli_trace_dir_writes_a_trace(dataset, native_outputs):
+    """--trace-dir with jax blocked: a gzipped Chrome trace holding the
+    device lookup's cm.lookup span; the outputs stay byte-equal to native.
+    (chip_smoke.py traces gpu-full on the card: cm.walk_waves and the
+    kernels.)"""
+    d = dataset
+    res = _run(["-r", "ref.fa", "-g", "ref.gtf", "-1", "R1.fq", "-2",
+                "R2.fq", "--pam", "-o", "traced", "--device", "gpu",
+                "--torch-device", "cpu", "--trace-dir", "tr"], d, RUN_CLI)
+    assert "trace written to" in res.stderr
+    (trace,) = (d / "tr").iterdir()
+    assert trace.name.endswith(".trace.json.gz")
+    with gzip.open(trace, "rt") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "cm.lookup" in names
+    for suffix, want in native_outputs.items():
+        assert (d / ("traced" + suffix)).read_bytes() == want, suffix
+
+
+def test_device_trace_follows_the_environment(tmp_path, monkeypatch):
+    import torch
+    from circminer_tpu_torch.utils.timing import device_trace
+    monkeypatch.delenv("CIRCMINER_TRACE_DIR", raising=False)
+    with device_trace():
+        torch.ones(3).add(1)
+    monkeypatch.setenv("CIRCMINER_TRACE_DIR", str(tmp_path / "env"))
+    with device_trace():
+        with torch.profiler.record_function("cm.test"):
+            torch.ones(3).add(1)
+    (trace,) = (tmp_path / "env").iterdir()
+    with gzip.open(trace, "rt") as f:
+        assert "cm.test" in {e.get("name")
+                             for e in json.load(f)["traceEvents"]}
+
+
 def test_cli_refuses_what_is_not_ported(dataset, capsys):
+    """Multi-host runs are the one part of the reference CLI not ported."""
     from circminer_tpu_torch.cli import main
     d = str(dataset)
-    argv = ["-r", f"{d}/ref.fa", "-g", f"{d}/ref.gtf", "--torch-device", "cpu"]
-    assert main(argv + ["-s", f"{d}/R1.fq"]) == 2
-    assert "single-end mapping (-s) is not ported" in capsys.readouterr().err
-    assert main(argv + ["-1", f"{d}/R1.fq", "-2", f"{d}/R2.fq",
-                        "--trace-dir", f"{d}/tr"]) == 2
-    assert "--trace-dir is not ported" in capsys.readouterr().err
+    argv = ["-r", f"{d}/ref.fa", "-g", f"{d}/ref.gtf", "--torch-device",
+            "cpu", "-1", f"{d}/R1.fq", "-2", f"{d}/R2.fq"]
+    assert main(argv + ["--num-hosts", "2", "--host-id", "0"]) == 2
+    assert "multi-host runs are not ported" in capsys.readouterr().err
+    assert main(argv + ["--coordinator", "localhost:1234"]) == 2
+    assert "multi-host runs are not ported" in capsys.readouterr().err

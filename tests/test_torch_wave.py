@@ -120,7 +120,7 @@ def test_no_silent_fallback_to_cpu(sim):
             DeviceMappingPipeline(db, gi, cfg, chain_exec="device",
                                   device="cuda")
     with pytest.raises(ValueError, match="chain_exec"):
-        DeviceMappingPipeline(db, gi, cfg, chain_exec="auto", device="cpu")
+        DeviceMappingPipeline(db, gi, cfg, chain_exec="tpu", device="cpu")
     with pytest.raises(ValueError, match="device-full"):
         DeviceMappingPipeline(db, gi, cfg, chain_exec="device-full",
                               extend_exec="device", device="cpu")
