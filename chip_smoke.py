@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (circminer_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab OLD.cu NEW.cu ...   # kernel sources A/B
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -10,7 +11,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   2. each hand-written CUDA kernel (xdrop, edit_sc, edit_end, one_side) and
      the fused [B, 10] wave_all_batch against their plain torch versions on
      the card, bit-equal, at the wave service's shape (B = 1024, I = 128,
-     Config() band/max_ed/max_sc, default ScoreMat), timed with CUDA events;
+     Config() band/max_ed/max_sc, default ScoreMat), each kernel timed by
+     the profiler's device events (the plain versions by CUDA events)
+     beside its bound (bytes over HBM bandwidth against int32
+     operations over the ALU peak, from these inputs) and its chain floor;
+     then all four bit-equal at every band w in SWEEP_W and B in SWEEP_B;
   3. the seed lookup on the card against the host C++ NativeSeeder on one
      batch of the phase-4 index: start, cnt and high bit-equal;
   4. the slice end to end at bench.py's default chr21 configuration (47 Mbp
@@ -30,7 +35,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      per-stage device time of one torch.profiler run of the map;
   7. one device_full_step on the first 256 pairs on the card (kernels) and
      on the CPU (plain versions) with the same statics: the raw int32
-     [B, MRF + 1] blobs bit-equal;
+     [B, MRF + 1] blobs bit-equal; then one more 4,096-pair step with the
+     kernels' inputs recorded: launches per step and rows of each kernel,
+     each bit-equal to its plain version there and timed, with its bound;
   8. stage 2 of the gpu-full path on the card: the BSJ pairs of the
      phase-6 map (sorted as bench.py sorts them) through the port's
      ProcessCirc.run(device_ext=True) (speculate-and-select waves on the
@@ -52,13 +59,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      --exec gpu-full --circ-device --repeat 2 and with --exec native: one
      JSON line each, the reference bench's keys, equal events.
 
-The port shares the reference package's host-only modules (simulator, index
-build, annotation, extension generators, C++ engines); nothing of JAX is
-imported, and the run checks that at the end.  The last stdout line is
+The port owns every module it runs (simulator, index build, annotation,
+extension generators and its C++ engines, built from native/*.cpp into
+build/circminer_tpu_torch/); nothing of JAX and nothing of the reference
+package circminer_tpu is imported, and the run checks both at the end.  The last stdout line is
 {"ok": true, "device": {...}}; the line before it carries the card's name
 and power limit, and the one before that the per-kernel JSON (launches on
 the gpu-full path: the map of phase 6 plus its stage 2 in phase 8, each
-counted from zero).
+counted from zero; ms, plain_ms, bound_ms at B = 1024; main_ms per launch
+at the row counts of the main path).
 """
 
 import copy
@@ -98,11 +107,19 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters):
-    """Mean device ms per call of fn over iters calls, after one warm-up."""
+def cuda_ms(fn, iters, warm_s=0.0):
+    """Mean device ms per call of fn over iters calls, after one warm-up
+    call, or after calling it for warm_s seconds (so that a short kernel
+    is timed at the card's working clock, not while it ramps up from
+    idle)."""
     import torch
+    t_end = time.perf_counter() + warm_s
     fn()
     torch.cuda.synchronize()
+    while time.perf_counter() < t_end:
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
@@ -111,6 +128,28 @@ def cuda_ms(fn, iters):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def device_ms(fn, kernel, iters, warm_s=0.2):
+    """Mean device time per launch of the CUDA kernel whose symbol holds
+    ``kernel``, over iters calls of fn, from the profiler's device events:
+    a kernel shorter than its wrapper's host cost would otherwise be timed
+    at the rate the host can launch it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cuda_ms(fn, 1, warm_s)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and kernel in e.name]
+    # the tracer may drop the odd record; the mean is over those it kept
+    check(len(ev) >= iters * 9 // 10, f"the profiler saw {len(ev)} "
+          f"launches of {kernel} in {iters} calls")
+    return sum(e.time_range.elapsed_us() for e in ev) / len(ev) / 1e3
 
 
 # --------------------------------------------------------------------------
@@ -132,8 +171,11 @@ def card_report():
 def kernel_inputs(rng, B, w, I=128):
     """Wave-shaped pair batch (as tests/test_pallas_align.py builds it):
     near-identical pairs, insertions, deletions and unrelated pairs, ~10%
-    with an N base, plus a few degenerate rows; wv in [0, w]."""
+    with an N base, plus a few degenerate rows; wv in [0, w].  Indel and
+    row shapes follow w held to [1, 20], so that wide bands keep reads of
+    realistic length."""
     import numpy as np
+    wv_max, w = w, min(max(w, 1), 20)
     L = I - 1
     s = np.zeros((B, L), np.int8)
     t = np.zeros((B, L), np.int8)
@@ -166,74 +208,359 @@ def kernel_inputs(rng, B, w, I=128):
         s[b, :n] = sv
         t[b, :m] = base[:m]
         ns[b], ms[b] = n, m
-    wv = rng.integers(0, w + 1, size=B).astype(np.int32)
+    wv = rng.integers(0, wv_max + 1, size=B).astype(np.int32)
     return s, t, ns, ms, wv
 
 
-def phase_kernels(device, B=1024, seed=7, iters=20, plain_iters=3):
-    """Each kernel (and wave_all_batch) vs its plain version on ``device``:
-    returns {name: dict(max_abs_err, ms, plain_ms)}."""
-    import numpy as np
-    import torch
-    from circminer_tpu.config import Config
-    from circminer_tpu.ops.align import ScoreMat
+# the two band-local kernels and the band widths / batch sizes they are held
+# to their plain versions at (one lane per item up to w = 6, lane groups
+# above it; B = 1 and 33 leave partial blocks)
+SWEEP_W = (0, 1, 2, 3, 5, 8, 31, 127)
+SWEEP_B = (1, 33, 1024, 8192)
+# H100 SXM peaks at 700 W (NVIDIA's data sheet): HBM3 bandwidth, and int32
+# ALU throughput = 132 SMs x 64 INT32 lanes x the 1.98 GHz boost clock
+HBM_BYTES_PER_S = 3.35e12
+CLOCK_HZ = 1.98e9
+INT32_OPS_PER_S = 132 * 64 * CLOCK_HZ
+# int32 operations one DP cell needs at least: edit cells compare the bases,
+# add the diagonal, take two mins and add the gap (5), edit_end tests the
+# column (6), edit_sc packs and keeps its candidate key (12); an X-drop cell
+# selects its substitution score, adds, takes two maxes and adds the gap
+# (6), prunes (8) and keeps the running (value, i) max (9)
+CELL_OPS = {"xdrop": 9, "edit_sc": 12, "edit_end": 6, "one_side": 5}
+# dependent int32 operations per anti-diagonal (the next diagonal cannot
+# start before they are done), each ~4 cycles of latency: the cell
+# recurrence (add, min/max, add, min/max, the band mask) and, for X-drop and
+# edit_sc, the diagonal's max that the next diagonal's prune or candidate
+# test reads
+CHAIN_OPS = {"xdrop": 12, "edit_sc": 12, "edit_end": 6, "one_side": 6}
+CHAIN_CYCLES_PER_OP = 4
+
+
+def kernel_cases(s, t, n, m, wv, w, max_ed, max_sc, sm):
+    """name -> (wrapper call, plain version call, output columns)."""
     from circminer_tpu_torch.ops import align_device as ad
     from circminer_tpu_torch.ops import pallas_align as pa
+    xd = dict(w=w, mat=sm.mat, mis=sm.mis, ind=sm.ind, xd=sm.xd)
+    es = dict(w=w, max_ed=max_ed, max_sc=max_sc)
+    return {
+        "xdrop": (lambda: pa.xdrop_batch(s, t, n, m, **xd),
+                  lambda: pa.xdrop_scan(s, t, n, m, **xd), 3),
+        "edit_sc": (lambda: pa.edit_sc_batch(s, t, n, m, **es),
+                    lambda: pa.edit_sc_scan(s, t, n, m, **es), 4),
+        "edit_end": (lambda: ad.edit_end_batch(s, t, n, m, w=w,
+                                               max_ed=max_ed),
+                     lambda: ad.edit_end_scan(s, t, n, m, w=w,
+                                              max_ed=max_ed), 2),
+        "one_side": (lambda: ad.one_side_batch(s, t, n, m, wv),
+                     lambda: ad.one_side_scan(s, t, n, m, wv), 1),
+    }
+
+
+def as_matrix(r):
+    import torch
+    if isinstance(r, torch.Tensor):
+        return r if r.dim() == 2 else r[:, None]
+    return torch.stack(r, dim=1)
+
+
+def hold_to_plain(name, kern, plain, n, m, tag=""):
+    """Kernel output vs plain version: bit-equal, or SmokeFailure."""
+    import torch
+    got, want = as_matrix(kern()), as_matrix(plain())
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}{tag}: {tuple(got.shape)} {got.dtype} vs plain "
+          f"{tuple(want.shape)} {want.dtype}")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if got.numel() else 0
+    if err:
+        bad = (got != want).any(dim=1).nonzero()[:5, 0]
+        raise SmokeFailure(
+            f"{name}{tag} differs from its plain version (max abs err {err}) "
+            f"at rows {bad.tolist()}: n={n[bad].tolist()} "
+            f"m={m[bad].tolist()} got={got[bad].tolist()} "
+            f"want={want[bad].tolist()}")
+    return err
+
+
+def xdrop_live(s, t, n, m, w, sm, I=128):
+    """Per item, the in-band cells the X-drop DP visits and the diagonal it
+    stops at (its dead band, or n + m): the band-local recurrence in numpy
+    (window of w + 2 slots from lb - 1, as the kernel keeps it)."""
+    import numpy as np
+    B = s.shape[0]
+    L = max(s.shape[1], 1)
+    sc = np.where(s >= 4, 4, s).astype(np.int64)
+    tc = np.where(t >= 4, 5, t).astype(np.int64)
+    NEG = -10 ** 7
+    W = min(w, 2 * I - 2) + 2
+    q = np.arange(W)[None, :]
+    wn, wm = np.minimum(n, w), np.minimum(m, w)
+    kend = np.minimum(2 * I - 1, n + m)
+    lb, ub = np.ones(B, np.int64), np.ones(B, np.int64)
+    pre_ub, pre_opt, cur_opt = (np.zeros(B, np.int64) for _ in range(3))
+    alive = (n > 0) & (m > 0)
+    cells, stop = np.zeros(B, np.int64), np.where(alive, kend, 0)
+    a = lb - 1
+    P = np.where((q <= 1) & (q <= wn[:, None]) & (1 - q <= wm[:, None]),
+                 sm.ind, NEG)
+    PP = np.where(q == 0, 0, NEG).repeat(B, axis=0)
+    rows = np.arange(B)[:, None]
+    for k in range(2, int(kend.max(initial=1)) + 1):
+        act = alive & (k <= kend)
+        if not act.any():
+            break
+        p = a[:, None] + q
+        j = k - p
+        sv = sc[rows, np.clip(p - 1, 0, L - 1)] if s.shape[1] else 0
+        tv = tc[rows, np.clip(j - 1, 0, L - 1)] if s.shape[1] else 0
+        PPm = np.concatenate([np.full((B, 1), NEG), PP[:, :-1]], axis=1)
+        Pm = np.concatenate([np.full((B, 1), NEG), P[:, :-1]], axis=1)
+        v = np.maximum(PPm + np.where(sv != tv, sm.mis, sm.mat),
+                       np.maximum(Pm, P) + sm.ind)
+        band = (p >= np.maximum(lb, k - m)[:, None]) & (p <= np.minimum(
+            np.minimum(ub, k - 1), np.minimum(n, I - 1))[:, None])
+        N = np.where((j == 0) & (p <= wn[:, None]), sm.ind * p, NEG)
+        N = np.where((p == 0) & (j >= 0) & (j <= wm[:, None]), sm.ind * j, N)
+        pruned = np.where(v + sm.xd < pre_opt[:, None], NEG, v)
+        N = np.where(band, pruned, N)
+        cells += np.where(act, band.sum(axis=1), 0)
+        vmax = np.where(band, v, NEG).max(axis=1)
+        cur_opt = np.where(act & (vmax >= cur_opt), vmax, cur_opt)
+        new_ub = np.where(band & (pruned > NEG), p, -1).max(axis=1)
+        odd = (k - w) % 2 == 1 if k > w else False
+        lb2 = np.where((k - lb == m) | (k > w and not odd), lb + 1, lb)
+        ub2 = np.where((ub < n) & (k <= w or odd), ub + 1, ub)
+        dead = ((pre_ub == -1) & (new_ub == -1)) | (lb2 > ub2)
+        pre_ub = np.where(act, new_ub, pre_ub)
+        pre_opt = np.where(act, np.maximum(pre_opt, cur_opt), pre_opt)
+        delta = np.where(act, lb2 - lb, 0)[:, None] == 1
+        lb, ub = np.where(act, lb2, lb), np.where(act, ub2, ub)
+        stop = np.where(act & dead, k, stop)
+        alive = alive & ~(act & dead)
+        shift = (lambda x: np.where(delta, np.concatenate(
+            [x[:, 1:], np.full((B, 1), NEG)], axis=1), x))
+        PP, P = shift(P), shift(N)
+        a = a + delta[:, 0]
+    return cells, stop
+
+
+def work(name, s, t, n, m, wv, w, sm):
+    """(DP cells these inputs need, diagonals of the longest item)."""
+    import numpy as np
+    if name == "xdrop":
+        cells, stop = xdrop_live(s, t, n, m, w, sm)
+        return int(cells.sum()), int(stop.max(initial=0))
+    i = np.arange(128)[None, :]     # cells (i, j), i <= n, j <= m, in band
+    if name == "one_side":
+        lo, hi = i, np.minimum(i + wv[:, None], m[:, None])
+    else:
+        lo, hi = np.maximum(0, i - w), np.minimum(i + w, m[:, None])
+    per_row = np.where(i <= n[:, None], np.maximum(0, hi - lo + 1), 0)
+    return int(per_row.sum()), int(np.minimum(255, n + m).max(initial=0))
+
+
+def bounds(name, B, L, ncols, cells, diags):
+    """(bound ms, what sets it, chain floor ms): bytes each input read once
+    and each output written once over HBM bandwidth, against the cells'
+    int32 operations over the ALU peak; the floor is the longest item's
+    diagonals times one diagonal's dependent chain."""
+    nbytes = B * (2 * L + 4 * 2 + 4 * ncols) + (4 * B if name == "one_side"
+                                                else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = cells * CELL_OPS[name] / INT32_OPS_PER_S * 1e3
+    floor = diags * CHAIN_OPS[name] * CHAIN_CYCLES_PER_OP / CLOCK_HZ * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", floor)
+
+
+def measure(name, kern, plain, ncols, host, w, sm, iters=200,
+            plain_iters=3):
+    """Time one kernel (device time per launch) and its plain version (per
+    call, CUDA events) on the card; add its bound and chain floor from these
+    inputs (``host``: numpy s, t, n, m, wv)."""
+    s, t, n, m, wv = host
+    cells, diags = work(name, s, t, n, m, wv, w, sm)
+    bound_ms, bound_by, floor = bounds(name, s.shape[0], s.shape[1], ncols,
+                                       cells, diags)
+    return dict(ms=device_ms(kern, f"{name}_kernel", iters),
+                plain_ms=cuda_ms(plain, plain_iters),
+                bound_ms=bound_ms, bound_by=bound_by, chain_floor_ms=floor,
+                cells=cells, diagonals=diags)
+
+
+def phase_kernels(device, B=1024, seed=7):
+    """Each kernel (and wave_all_batch) vs its plain version on ``device``
+    at the wave service's shape, timed, with its bound; then every kernel
+    bit-equal over the SWEEP_W x SWEEP_B grid.  Returns {name: dict}."""
+    import numpy as np
+    import torch
+    from circminer_tpu_torch.config import Config
+    from circminer_tpu_torch.ops import align_device as ad
+    from circminer_tpu_torch.ops.align import ScoreMat
 
     c, sm = Config(), ScoreMat()
     w, me, ms_ = c.band_width, c.max_ed, c.max_sc
-    s, t, n, m, wv = (torch.from_numpy(a).to(device) for a in
-                      kernel_inputs(np.random.default_rng(seed), B, w))
-    cases = {
-        "xdrop": (lambda: pa.xdrop_batch(s, t, n, m, w=w, mat=sm.mat,
-                                         mis=sm.mis, ind=sm.ind, xd=sm.xd),
-                  lambda: pa.xdrop_scan(s, t, n, m, w=w, mat=sm.mat,
-                                        mis=sm.mis, ind=sm.ind, xd=sm.xd)),
-        "edit_sc": (lambda: pa.edit_sc_batch(s, t, n, m, w=w, max_ed=me,
-                                             max_sc=ms_),
-                    lambda: pa.edit_sc_scan(s, t, n, m, w=w, max_ed=me,
-                                            max_sc=ms_)),
-        "edit_end": (lambda: ad.edit_end_batch(s, t, n, m, w=w, max_ed=me),
-                     lambda: ad.edit_end_scan(s, t, n, m, w=w, max_ed=me)),
-        "one_side": (lambda: ad.one_side_batch(s, t, n, m, wv),
-                     lambda: ad.one_side_scan(s, t, n, m, wv)),
-    }
+    host = kernel_inputs(np.random.default_rng(seed), B, w)
+    s, t, n, m, wv = (torch.from_numpy(a).to(device) for a in host)
+    cases = kernel_cases(s, t, n, m, wv, w, me, ms_, sm)
     statics = dict(w=w, max_ed=me, max_sc=ms_, mat=sm.mat, mis=sm.mis,
                    ind=sm.ind, xd=sm.xd)
-    cases["wave_all_batch"] = (
-        lambda: ad.wave_all_batch(s, t, n, m, wv, **statics),
-        lambda: ad.wave_all_scan(s, t, n, m, wv, **statics))
-
-    def as_matrix(r):
-        if isinstance(r, torch.Tensor):
-            return r if r.dim() == 2 else r[:, None]
-        return torch.stack(r, dim=1)
-
     res = {}
-    for name, (kern, plain) in cases.items():
-        got, want = as_matrix(kern()), as_matrix(plain())
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        check(got.shape == want.shape and got.dtype == want.dtype,
-              f"{name}: {tuple(got.shape)} {got.dtype} vs plain "
-              f"{tuple(want.shape)} {want.dtype}")
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        if err:
-            bad = (got != want).reshape(B, -1).any(dim=1).nonzero()[:5, 0]
-            raise SmokeFailure(
-                f"{name} differs from its plain version (max abs err {err}) "
-                f"at rows {bad.tolist()}: n={n[bad].tolist()} "
-                f"m={m[bad].tolist()} got={got[bad].tolist()} "
-                f"want={want[bad].tolist()}")
-        timing = {}
-        if device.type == "cuda":
-            timing = dict(ms=cuda_ms(kern, iters),
-                          plain_ms=cuda_ms(plain, plain_iters))
-        res[name] = dict(max_abs_err=err, **timing)
-        log(f"[kernels] {name}: bit-equal to plain on B={B} "
-            + (f"({timing['ms']:.4f} ms vs plain {timing['plain_ms']:.3f} ms)"
-               if timing else ""))
+    for name, (kern, plain, ncols) in cases.items():
+        err = hold_to_plain(name, kern, plain, n, m)
+        res[name] = dict(max_abs_err=err, **measure(
+            name, kern, plain, ncols, host, w, sm))
+        r = res[name]
+        log(f"[kernels] {name}: bit-equal to plain on B={B}, w={w}: "
+            f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms; bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}, {r['cells']} cells), "
+            f"chain floor {r['chain_floor_ms']:.4f} ms over "
+            f"{r['diagonals']} diagonals")
+    hold_to_plain("wave_all_batch",
+                  lambda: ad.wave_all_batch(s, t, n, m, wv, **statics),
+                  lambda: ad.wave_all_scan(s, t, n, m, wv, **statics), n, m)
+    log(f"[kernels] wave_all_batch: bit-equal to plain on B={B}")
+    for w_ in SWEEP_W:
+        for B_ in SWEEP_B:
+            arrs = kernel_inputs(np.random.default_rng(w_ * 10007 + B_), B_,
+                                 w_)
+            s, t, n, m, wv = (torch.from_numpy(a).to(device) for a in arrs)
+            for name, (kern, plain, _) in kernel_cases(
+                    s, t, n, m, wv, w_, me, ms_, sm).items():
+                hold_to_plain(name, kern, plain, n, m,
+                              f" (w={w_}, B={B_})")
+    log(f"[kernels] all four kernels bit-equal to plain at w in {SWEEP_W} "
+        f"x B in {SWEEP_B}")
     return res
+
+
+def recording_inputs(store):
+    """Wrap ``_ext.launch`` so that the first input of each (kernel, rows)
+    shape is kept in ``store`` with its statics and every launch is counted
+    there too; returns the function that undoes it."""
+    from circminer_tpu_torch.ops import _ext
+    launch = _ext.launch
+
+    def record(name, s, t, n, m, wv, ncols, I, statics):
+        key = (name, s.shape[0])
+        if key not in store:
+            store[key] = dict(args=[x.clone() for x in (s, t, n, m)] + [
+                None if wv is None else wv.clone()], statics=statics,
+                count=0)
+        store[key]["count"] += 1
+        return launch(name, s, t, n, m, wv, ncols, I, statics)
+    _ext.launch = record
+
+    def undo():
+        _ext.launch = launch
+    return undo
+
+
+def phase_main_shapes(pipe, reads, cfg, batch):
+    """One more 4,096-pair step of the gpu-full map with the kernels'
+    inputs recorded: per (kernel, rows) its launches in the step, bit-
+    equality with the plain version on those inputs, and its time, bound
+    and chain floor there."""
+    import torch
+    from circminer_tpu_torch.ops.align import ScoreMat
+    store = {}
+    undo = recording_inputs(store)
+    try:
+        pipe.map_stream(iter(make_pairs(reads[:batch], cfg)))
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    sm = ScoreMat()
+    res = {}
+    for (name, rows), rec in sorted(store.items()):
+        s, t, n, m, wv = rec["args"]
+        st = rec["statics"]
+        if name == "xdrop":
+            w, me, ms_ = st[0], 0, 0
+            sm = ScoreMat(*st[1:])    # (w, mat, mis, ind, xd)
+        elif name == "one_side":
+            w, me, ms_ = 0, 0, 0
+        else:
+            w, me = st[0], st[1]
+            ms_ = st[2] if name == "edit_sc" else 0
+        kern, plain, ncols = kernel_cases(s, t, n, m, wv, w, me, ms_,
+                                          sm)[name]
+        hold_to_plain(name, kern, plain, n, m, f" (main path, {rows} rows)")
+        host = [None if x is None else x.cpu().numpy() for x in rec["args"]]
+        r = dict(rows=rows, launches_per_step=rec["count"],
+                 active_rows=int(((n > 0) & (m > 0)).sum()),
+                 **measure(name, kern, plain, ncols, host, w, sm))
+        res.setdefault(name, []).append(r)
+        log(f"[main-shapes] {name} x{rec['count']} per {batch}-pair step at "
+            f"{rows} rows ({r['active_rows']} with n, m > 0): bit-equal to "
+            f"plain; {r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms; bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}), chain floor "
+            f"{r['chain_floor_ms']:.4f} ms over {r['diagonals']} diagonals")
+    return res
+
+
+def phase_ab(sources, w=3, rows=(1024, 8192, 512), iters=200):
+    """``python3 chip_smoke.py --ab A.cu B.cu ...``: the kernels of several
+    versions of the CUDA source on one card, in turns (A B ... then ... B
+    A), each built with the port's nvcc flags and held bit-equal to the
+    plain versions, at ``rows`` items of kernel_inputs at band w.  Returns
+    {source: {kernel: {rows: mean ms of the two turns}}}."""
+    import ctypes
+    import numpy as np
+    import torch
+    from circminer_tpu_torch.ops import _ext
+    from circminer_tpu_torch.ops.align import ScoreMat
+    flags = [f for f in _ext.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    out_dir = os.path.join(HERE, "build", "ab")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = []
+    for k, src in enumerate(sources):
+        so = os.path.join(out_dir, f"lib{k}_{os.path.basename(src)}.so")
+        procs.append((src, so, subprocess.Popen(
+            [_ext._nvcc(), *flags, "-o", so, src], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    libs = {}
+    for src, so, proc in procs:          # the builds run side by side
+        _, err = proc.communicate()
+        check(proc.returncode == 0, f"nvcc {src} failed:\n{err[-3000:]}")
+        libs[src] = _ext.bind(ctypes.CDLL(so))
+    sm = ScoreMat()
+    statics = {"xdrop": (w, sm.mat, sm.mis, sm.ind, sm.xd),
+               "edit_sc": (w, 4, 7), "edit_end": (w, 4), "one_side": ()}
+    ncols = {"xdrop": 3, "edit_sc": 4, "edit_end": 2, "one_side": 1}
+    times = {src: {} for src in sources}
+    for B in rows:
+        host = kernel_inputs(np.random.default_rng(B), B, w)
+        s, t, n, m, wv = (torch.from_numpy(a).cuda() for a in host)
+        plain = {name: as_matrix(cases[1]()) for name, cases in kernel_cases(
+            s, t, n, m, wv, w, 4, 7, sm).items()}
+        stream = torch.cuda.current_stream().cuda_stream
+        for turn in (sources, sources[::-1]):
+            for src in turn:
+                for name, (sym, _) in _ext.KERNELS.items():
+                    out = torch.empty((B, ncols[name]), dtype=torch.int32,
+                                      device="cuda")
+                    fn = getattr(libs[src], sym)
+                    args = (s.data_ptr(), t.data_ptr(), n.data_ptr(),
+                            m.data_ptr(), wv.data_ptr(), out.data_ptr(), B,
+                            s.shape[1], *statics[name], stream)
+                    check(fn(*args) == 0, f"{src} {name} failed to launch")
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, plain[name]),
+                          f"{src} {name} differs from its plain version "
+                          f"at B={B}")
+                    ms = device_ms(lambda: fn(*args), f"{name}_kernel",
+                                   iters)
+                    times[src].setdefault(name, {}).setdefault(
+                        str(B), []).append(ms)
+                    log(f"[ab] {os.path.basename(src)} {name} B={B} w={w}: "
+                        f"{ms:.5f} ms")
+    return {src: {name: {b: sum(v) / len(v) for b, v in per.items()}
+                  for name, per in kern.items()}
+            for src, kern in times.items()}
 
 
 # --------------------------------------------------------------------------
@@ -243,11 +570,11 @@ def phase_kernels(device, B=1024, seed=7, iters=20, plain_iters=3):
 def chr21_setup(genome_len=47_000_000, n_pairs=16_384):
     """bench.py's default configuration: genome, index, annotation, reads."""
     import numpy as np
-    from circminer_tpu.annotation.annotation import AnnotationDB
-    from circminer_tpu.config import Config
-    from circminer_tpu.index.build import build_genome_index
-    from circminer_tpu.io.fasta import GenomePacker
-    from circminer_tpu.sim import make_genome, simulate_reads
+    from circminer_tpu_torch.annotation.annotation import AnnotationDB
+    from circminer_tpu_torch.config import Config
+    from circminer_tpu_torch.index.build import build_genome_index
+    from circminer_tpu_torch.io.fasta import GenomePacker
+    from circminer_tpu_torch.sim import make_genome, simulate_reads
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED_GENOME)
@@ -273,9 +600,9 @@ def chr21_setup(genome_len=47_000_000, n_pairs=16_384):
 
 
 def make_pairs(reads, cfg):
-    from circminer_tpu.ops.encode import encode_seq, revcomp
-    from circminer_tpu.pipeline.mapping import ReadRecord
-    from circminer_tpu.pipeline.types import MatchedRead
+    from circminer_tpu_torch.ops.encode import encode_seq, revcomp
+    from circminer_tpu_torch.pipeline.mapping import ReadRecord
+    from circminer_tpu_torch.pipeline.types import MatchedRead
     out = []
     for r in reads:
         s1, s2 = encode_seq(r.r1), encode_seq(r.r2)
@@ -299,7 +626,7 @@ def phase_lookup(cfg, gi, reads, device, batch=4096):
     device ms per batch (CUDA events; None off the card)."""
     import numpy as np
     import torch
-    from circminer_tpu.ops.seed_native import NativeSeeder
+    from circminer_tpu_torch.ops.seed_native import NativeSeeder
     from circminer_tpu_torch.pipeline.device_pipeline import (
         ContigDeviceState, encode_pairs, lookup_even)
     ci = gi.contigs[0]
@@ -330,8 +657,8 @@ def run_slice(cfg, gi, db, reads, chain_exec, extend_exec, device,
     """Map + call one fresh copy of the read set; returns per-pair keys,
     called events and timings."""
     import torch
-    from circminer_tpu.config import CHIBSJ, CHI2BSJ
-    from circminer_tpu.pipeline.circ import ProcessCirc
+    from circminer_tpu_torch.config import CHIBSJ, CHI2BSJ
+    from circminer_tpu_torch.pipeline.circ import ProcessCirc
     from circminer_tpu_torch.pipeline.device_pipeline import (
         DeviceMappingPipeline)
     pipe = DeviceMappingPipeline(db, gi, cfg, batch_size=batch,
@@ -433,8 +760,8 @@ def full_step_args(pipe, pairs, device, batch):
     state)."""
     import numpy as np
     import torch
-    from circminer_tpu.ops.filter_native import NativeFilter
-    from circminer_tpu.pipeline.types import MatchedRead
+    from circminer_tpu_torch.ops.filter_native import NativeFilter
+    from circminer_tpu_torch.pipeline.types import MatchedRead
     from circminer_tpu_torch.pipeline.device_pipeline import encode_pairs
     cfg = pipe.cfg
     rows = 4 * batch
@@ -576,12 +903,11 @@ def circ_key(c):
 def phase_stage2(cfg, gi, db, full, device):
     """Stage 2 of the gpu-full map's BSJ pairs on the card against the host
     native stage 2; returns the kernel launches of the device run."""
-    from circminer_tpu.pipeline.circ import ProcessCirc as HostProcessCirc
     from circminer_tpu_torch.ops import _ext
     from circminer_tpu_torch.pipeline.circ import ProcessCirc
     bsj = full["bsj_pairs"]
     with tempfile.TemporaryDirectory() as tmp:
-        host = HostProcessCirc(db, gi, cfg, os.path.join(tmp, "host"))
+        host = ProcessCirc(db, gi, cfg, os.path.join(tmp, "host"))
         t0 = time.perf_counter()
         host.run(list(bsj))
         host_s = time.perf_counter() - t0
@@ -655,9 +981,9 @@ def phase_auto(cfg, gi, db, device, batch=4096):
 
 
 def make_se(reads, cfg):
-    from circminer_tpu.ops.encode import encode_seq, revcomp
-    from circminer_tpu.pipeline.mapping import ReadRecord
-    from circminer_tpu.pipeline.types import MatchedRead
+    from circminer_tpu_torch.ops.encode import encode_seq, revcomp
+    from circminer_tpu_torch.pipeline.mapping import ReadRecord
+    from circminer_tpu_torch.pipeline.types import MatchedRead
     out = []
     for r in reads:
         s1 = encode_seq(r.r1)
@@ -720,7 +1046,7 @@ def trace_names(trace_dir, names):
 def phase_cli(torch_device="cuda", genome_len=100_000, n_reads=1000,
               batch=4096):
     import numpy as np
-    from circminer_tpu.sim import make_genome, simulate_reads, write_fastq
+    from circminer_tpu_torch.sim import make_genome, simulate_reads, write_fastq
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     with tempfile.TemporaryDirectory() as d:
@@ -850,8 +1176,20 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--ab"]:
+        card = card_report()
+        try:
+            ab = phase_ab(sys.argv[2:])
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"ab": ab}))
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     try:
-        import circminer_tpu_torch  # noqa: F401  (installs the import guard)
         from circminer_tpu_torch.ops import _ext
         t_all = time.perf_counter()
         card = card_report()
@@ -870,6 +1208,7 @@ def main() -> int:
         full, full_launches, full_m = phase_full(cfg, gi, db, reads, native,
                                                  device)
         phase_step_vs_plain(cfg, gi, db, reads, full)
+        main_shapes = phase_main_shapes(full["pipe"], reads, cfg, 4096)
         s2_launches, s2 = phase_stage2(cfg, gi, db, full, device)
         launches = {k: full_launches[k] + s2_launches[k] for k in REPLACES}
         with tempfile.TemporaryDirectory() as cache:
@@ -881,8 +1220,10 @@ def main() -> int:
             os.environ.pop("CIRCMINER_CACHE_DIR")
         bench_full, bench_native = phase_bench(device)
         leaked = sorted(m for m in sys.modules
-                        if m == "jax" or m.startswith(("jax.", "jaxlib")))
-        check(not leaked, f"JAX modules were imported: {leaked[:5]}")
+                        if m.split(".")[0] in ("jax", "jaxlib",
+                                               "circminer_tpu"))
+        check(not leaked, f"JAX or reference modules were imported: "
+              f"{leaked[:5]}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -903,11 +1244,19 @@ def main() -> int:
         f"{auto['executor']}; bench gpu-full {bench_full['value']} vs "
         f"native {bench_native['value']} reads/s; "
         f"total {time.perf_counter() - t_all:.1f} s")
+    # main_ms: per launch at each row count the gpu-full step sends (edit_sc
+    # runs only in stage 2, whose wave dispatches are the phase-2 shape)
+    main_ms = {name: {str(r["rows"]): r["ms"] for r in main_shapes.get(
+        name, [])} or {"1024": kern[name]["ms"]} for name in REPLACES}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
-         "plain_ms": kern[name]["plain_ms"]} for name in REPLACES]}))
+         "plain_ms": kern[name]["plain_ms"],
+         "bound_ms": kern[name]["bound_ms"],
+         "bound_by": kern[name]["bound_by"], "library_ms": None,
+         "chain_floor_ms": kern[name]["chain_floor_ms"],
+         "main_ms": main_ms[name]} for name in REPLACES]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,38 +1,14 @@
 """circminer-torch: the PyTorch + CUDA port of circminer_tpu.
 
-The JAX package ``circminer_tpu`` is the reference; this package holds the
-device half of the mapping path on torch tensors, with hand-written CUDA
-kernels for Hopper (``csrc/``), and reuses the reference's host-only code
-(config, FASTA/FASTQ I/O, index build, annotation, the per-read extension
-generators, the native C++ chain/filter/circ engines).
-
-This package never imports jax, and a process that runs it loads no jax
-unless something else in that process already did.  One shared host module
-would: the reference ``circminer_tpu/ops/chain.py`` imports jax at module
-level for its device chain DP, and ``pipeline/mapping.py``,
-``pipeline/circ.py`` and ``ops/chain_native.py`` import ``Chain`` from it.
-So, before any shared module loads, the guard below registers the port's
-jax-free copy of that module's host half under the reference's name; the
-reference's host code then imports unchanged, whether or not jax is
-installed.  The guard stands aside when jax is already imported (a process
-that runs the JAX reference beside the port, as the parity tests do): there
-the real module costs no extra import and JAX code keeps its full module.
+The JAX package ``circminer_tpu`` is the reference.  This package is the
+whole system on torch tensors, with hand-written CUDA kernels for Hopper
+(``csrc/``), and owns every module it runs: the host code it shares with
+the reference in behaviour (config, FASTA/FASTQ I/O, index build,
+annotation, the per-read extension generators, stage 2) is kept here as
+copies at the reference's relative paths, and its C++ engines
+(``native/*.cpp``) are built from the port's own sources into
+``build/circminer_tpu_torch/``.  It imports neither jax nor anything of
+``circminer_tpu``.
 """
 
-import sys
-
 __version__ = "0.1.0"
-
-_CHAIN = "circminer_tpu.ops.chain"
-
-
-def _install_chain_host_half() -> None:
-    if _CHAIN in sys.modules or "jax" in sys.modules:
-        return
-    import circminer_tpu.ops as ref_ops
-    from .ops import chain as host_chain
-    sys.modules[_CHAIN] = host_chain
-    ref_ops.chain = host_chain
-
-
-_install_chain_host_half()

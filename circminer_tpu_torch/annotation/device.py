@@ -23,7 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from circminer_tpu.annotation.annotation import ContigAnnotation
+from .annotation import ContigAnnotation
 
 _I32MAX = 2 ** 31 - 1
 

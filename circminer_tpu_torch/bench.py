@@ -80,10 +80,10 @@ def parse_args(argv=None):
 
 def setup(genome_len, n_genes, dup_frac, cfg):
     """The reference bench's genome, index and annotation."""
-    from circminer_tpu.annotation.annotation import AnnotationDB
-    from circminer_tpu.index.build import build_genome_index
-    from circminer_tpu.io.fasta import GenomePacker
-    from circminer_tpu.sim import make_genome
+    from .annotation.annotation import AnnotationDB
+    from .index.build import build_genome_index
+    from .io.fasta import GenomePacker
+    from .sim import make_genome
     rng = np.random.default_rng(20260817)
     g = make_genome(rng, length=genome_len, n_genes=n_genes,
                     dup_frac=dup_frac)
@@ -100,9 +100,9 @@ def setup(genome_len, n_genes, dup_frac, cfg):
 
 
 def make_pair(r, max_ed):
-    from circminer_tpu.ops.encode import encode_seq, revcomp
-    from circminer_tpu.pipeline.mapping import ReadRecord
-    from circminer_tpu.pipeline.types import MatchedRead
+    from .ops.encode import encode_seq, revcomp
+    from .pipeline.mapping import ReadRecord
+    from .pipeline.types import MatchedRead
     s1, s2 = encode_seq(r.r1), encode_seq(r.r2)
     return (ReadRecord(r.name, s1, revcomp(s1), "I" * len(r.r1), len(r.r1),
                        MatchedRead.default(max_ed)),
@@ -113,8 +113,8 @@ def make_pair(r, max_ed):
 def run_once(pipe, db, gi, cfg, reads, truth, circ_device, device):
     """One timed map + call on fresh read state; returns the run's record."""
     import torch
-    from circminer_tpu.config import CHI2BSJ, CHIBSJ, CONCRD
-    from circminer_tpu.utils.timing import GLOBAL_TIMER as T
+    from .config import CHI2BSJ, CHIBSJ, CONCRD
+    from .utils.timing import GLOBAL_TIMER as T
     from .pipeline.circ import ProcessCirc
     pairs = [make_pair(r, cfg.max_ed) for r in reads]
     pipe.reset_stats()
@@ -156,8 +156,8 @@ def run_once(pipe, db, gi, cfg, reads, truth, circ_device, device):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    from circminer_tpu.config import Config
-    from circminer_tpu.sim import simulate_reads
+    from .config import Config
+    from .sim import simulate_reads
     from .cli import EXECUTORS
     from .device import resolve_device
     from .pipeline.device_pipeline import DeviceMappingPipeline

@@ -1,7 +1,7 @@
 """Command-line interface of the torch port.
 
-Takes the reference's flags (``circminer_tpu.cli.build_parser``) with the
-port's executors:
+Takes every flag of the reference's CLI (``circminer_tpu/cli.py``), with
+the port's executors:
 
     python -m circminer_tpu_torch.cli --index -r ref.fa -k 20
     python -m circminer_tpu_torch.cli -r ref.fa -g ref.gtf -1 R1.fq -2 R2.fq \\
@@ -30,10 +30,8 @@ import argparse
 import sys
 from typing import List
 
-from circminer_tpu.cli import build_parser as _reference_parser
-from circminer_tpu.cli import config_from_args, run_index
-from circminer_tpu.config import (CHI2BSJ, CHIBSJ, CONCRD, PAMFORMAT,
-                                  SAMFORMAT)
+from .config import (Config, CONCRD, CHIBSJ, CHI2BSJ, DISCARDMAPREPORT,
+                     PAMFORMAT, SAMFORMAT)
 
 # --device -> (chain_exec, extend_exec) of the port's pipeline; "host" (the
 # per-read oracle) runs no pipeline
@@ -46,11 +44,36 @@ EXECUTORS = {"auto": ("auto", "native"),
 
 
 def build_parser() -> argparse.ArgumentParser:
-    # the reference's flags, with --device replaced by the port's executors
+    # the reference's flags (circminer_tpu/cli.py build_parser), with the
+    # port's executors for --device and the port's own options
     p = argparse.ArgumentParser(
         prog="circminer-torch",
-        description="circRNA detection, PyTorch + CUDA port of circminer-tpu",
-        parents=[_reference_parser()], conflict_handler="resolve")
+        description="circRNA detection, PyTorch + CUDA port of circminer-tpu")
+    p.add_argument("-i", "--index", action="store_true")
+    p.add_argument("-m", "--compact-index", action="store_true")
+    p.add_argument("-r", "--reference", required=True)
+    p.add_argument("-g", "--gtf")
+    p.add_argument("-s", "--seq")
+    p.add_argument("-1", "--seq1", dest="seq1")
+    p.add_argument("-2", "--seq2", dest="seq2")
+    p.add_argument("-k", "--kmer", type=int, default=20)
+    p.add_argument("-l", "--rlen", type=int, default=300)
+    p.add_argument("-o", "--output", default="output")
+    p.add_argument("-t", "--thread", type=int, default=1)
+    p.add_argument("-d", "--verbosity", type=int, default=0)
+    p.add_argument("-a", "--scan-lev", type=int, default=0)
+    p.add_argument("-e", "--max-ed", type=int, default=4)
+    p.add_argument("-c", "--max-sc", type=int, default=7)
+    p.add_argument("-w", "--band", type=int, default=3)
+    p.add_argument("-S", "--seed-lim", type=int, default=500)
+    p.add_argument("-T", "--max-tlen", type=int, default=500)
+    p.add_argument("-I", "--max-intron", type=int, default=2_000_000)
+    p.add_argument("-C", "--max-chain-list", type=int, default=30)
+    p.add_argument("-q", "--stage", type=int, default=2)
+    p.add_argument("-z", "--keep-intermediate", action="store_true")
+    p.add_argument("-Z", "--internal-sort", action="store_true")
+    p.add_argument("-A", "--sam", action="store_true")
+    p.add_argument("-P", "--pam", action="store_true")
     p.add_argument("--device", choices=sorted(EXECUTORS) + ["host"],
                    default="auto",
                    help="mapping executor: auto = gpu or native, picked by "
@@ -62,16 +85,60 @@ def build_parser() -> argparse.ArgumentParser:
                         "lookup + wave-batched extension on the CUDA DP "
                         "kernels; native = all host C++; host = per-read "
                         "Python oracle")
+    p.add_argument("--mrsfast-format", action="store_true",
+                   help="with --index: also write the reference's mrsFAST "
+                        "binary index format for interop/parity checks")
+    p.add_argument("--coordinator",
+                   help="coordinator address (host:port) for multi-host "
+                        "runs (not ported yet)")
+    p.add_argument("--num-hosts", type=int, default=None)
+    p.add_argument("--host-id", type=int, default=None)
+    p.add_argument("--trace-dir",
+                   help="write a torch.profiler Chrome trace of the search "
+                        "stages here (also CIRCMINER_TRACE_DIR)")
     p.add_argument("--batch-size", type=int, default=4096,
                    help="reads or read pairs per device batch (the fused "
                         "gpu-full step sizes its DP pools from it)")
     p.add_argument("--torch-device", choices=["cuda", "cpu"], default="cuda",
                    help="torch device of the device executors (cpu runs "
                         "their plain torch versions)")
-    p.add_argument("--trace-dir",
-                   help="write a torch.profiler Chrome trace of the search "
-                        "stages here (also CIRCMINER_TRACE_DIR)")
     return p
+
+
+def config_from_args(args) -> Config:
+    report = SAMFORMAT if args.sam else (PAMFORMAT if args.pam
+                                         else DISCARDMAPREPORT)
+    return Config(
+        kmer=args.kmer, max_read_len=args.rlen, max_ed=args.max_ed,
+        max_sc=args.max_sc, band_width=args.band, seed_lim=args.seed_lim,
+        max_tlen=args.max_tlen, max_intron=args.max_intron,
+        max_chain_len=args.max_chain_list, scan_level=args.scan_lev,
+        stage=args.stage, report_mapping=report,
+        paired_end=args.seq2 is not None,
+        compact_index=args.compact_index,
+        final_cleaning=not args.keep_intermediate,
+        internal_sort=args.internal_sort, threads=args.thread,
+    ).validate()
+
+
+def run_index(args, cfg: Config) -> int:
+    from .io.fasta import GenomePacker
+    from .index.build import build_genome_index, save_genome_index
+    gp = GenomePacker(args.reference)
+    print("[INFO] packing reference genome...", file=sys.stderr)
+    contigs, info = gp.pack_genome()
+    print(f"[INFO] building index over {len(contigs)} contig(s)...",
+          file=sys.stderr)
+    gi = build_genome_index(contigs, cfg)
+    save_genome_index(gi, gp.index_fname, compact=cfg.compact_index)
+    print(f"[INFO] index written to {gp.index_fname}.npz", file=sys.stderr)
+    if args.mrsfast_format:
+        from .index.mrsfast_format import write_mrsfast_index
+        write_mrsfast_index(gi, gp.index_fname,
+                            full=not cfg.compact_index)
+        print(f"[INFO] mrsFAST-format index written to {gp.index_fname}",
+              file=sys.stderr)
+    return 0
 
 
 def _unported(args) -> str:
@@ -87,8 +154,7 @@ def run_search(args, cfg) -> int:
 
 
 def _host_mappers(db, gi, cfg, n_contigs):
-    from circminer_tpu.pipeline.mapping import Mapper
-    from .ops.seed_host import make_host_seeder
+    from .pipeline.mapping import Mapper, make_host_seeder
     return [Mapper(db, c, gi.contigs[c].codes, cfg,
                    make_host_seeder(gi.contigs[c], cfg))
             for c in range(n_contigs)]
@@ -96,15 +162,14 @@ def _host_mappers(db, gi, cfg, n_contigs):
 
 def _run_search_stages(args, cfg) -> int:
     import os
-    from circminer_tpu.annotation.annotation import AnnotationDB
-    from circminer_tpu.config import Config
-    from circminer_tpu.index.build import load_genome_index
-    from circminer_tpu.io.fasta import GenomePacker, chrloc2conloc
-    from circminer_tpu.io.fastq import (FastqReader, RemainWriter,
-                                        iter_sorted_remain, read_pairs)
-    from circminer_tpu.pipeline.output import SamOutput
-    from circminer_tpu.pipeline.types import round_skip
-    from circminer_tpu.utils.logging import set_trace_level
+    from .annotation.annotation import AnnotationDB
+    from .index.build import load_genome_index
+    from .io.fasta import GenomePacker, chrloc2conloc
+    from .io.fastq import (FastqReader, RemainWriter, iter_sorted_remain,
+                           read_pairs)
+    from .pipeline.output import SamOutput
+    from .pipeline.types import round_skip
+    from .utils.logging import set_trace_level
     from .pipeline.circ import ProcessCirc
     from .pipeline.device_pipeline import DeviceMappingPipeline
 
@@ -114,7 +179,7 @@ def _run_search_stages(args, cfg) -> int:
     if os.path.exists(gp.index_fname + ".npz"):
         gi = load_genome_index(gp.index_fname)
     else:
-        from circminer_tpu.index.mrsfast_format import read_mrsfast_index
+        from .index.mrsfast_format import read_mrsfast_index
         gi = read_mrsfast_index(gp.index_fname)
     cfg = Config(**{**cfg.__dict__, "kmer": gi.kmer})
     n_contigs = GenomePacker.packed_contig_cnt(info)

@@ -37,7 +37,23 @@ KERNELS = {
     "edit_end": ("cm_edit_end", 2),  # w, max_ed
     "one_side": ("cm_one_side", 0),  # per-item band width comes in wv
 }
-I_KERNEL = 128  # DP extent of every kernel: 4 cells x 32 lanes of a warp
+I_KERNEL = 128  # DP extent of every kernel: cells i = 0 .. 127 of a diagonal
+
+
+def band_layout(w: int):
+    """(G, NC) of the band-local ``xdrop`` and ``edit_end`` kernels at band
+    w: G lanes of NC cells per item hold the w + 2 window slots of a
+    diagonal (``band_layout`` in csrc/align_kernels.cu makes the same
+    choice).  One lane per item up to w = 6, then 8 cells per lane; a band
+    wider than 2I - 2 changes no cell's test and is held at that."""
+    slots = min(w, 2 * I_KERNEL - 2) + 2
+    if slots <= 8:
+        return 1, max(slots, 2)
+    g = 2
+    while g * 8 < slots and g < 32:
+        g *= 2
+    return g, 8
+
 
 # launches per kernel since the last reset_launches(); only launch() adds
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -86,17 +102,21 @@ def build() -> str:
     return so
 
 
+def bind(lib):
+    """Declare the C signature of every kernel symbol of a loaded library."""
+    p, c = ctypes.c_void_p, ctypes.c_int
+    for sym, n_statics in KERNELS.values():
+        fn = getattr(lib, sym)
+        # s, t, n, m, wv, out, B, L, statics..., stream
+        fn.argtypes = [p] * 6 + [c, c] + [c] * n_statics + [p]
+        fn.restype = c
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        p, c = ctypes.c_void_p, ctypes.c_int
-        for sym, n_statics in KERNELS.values():
-            fn = getattr(lib, sym)
-            # s, t, n, m, wv, out, B, L, statics..., stream
-            fn.argtypes = [p] * 6 + [c, c] + [c] * n_statics + [p]
-            fn.restype = c
-        _lib = lib
+        _lib = bind(ctypes.CDLL(build()))
     return _lib
 
 

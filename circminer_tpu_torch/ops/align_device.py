@@ -2,7 +2,7 @@
 
 Counterpart of ``circminer_tpu/ops/align_device.py``: a whole *wave* of
 alignment requests (the tuples the per-read generators of
-``circminer_tpu/pipeline/extend.py`` yield) is answered with one fused
+``pipeline/extend.py`` yield) is answered with one fused
 dispatch per B-row chunk instead of one scalar DP per candidate.
 
 Kind -> DP family (each a hand-written CUDA kernel on the card):
@@ -11,8 +11,8 @@ Kind -> DP family (each a hand-written CUDA kernel on the card):
   end_r / end_l           -> edit_end  (candidates on column j == m)
   one_side                -> one_side  (per-item band width)
 
-Requests outside the kernels' banded regime are answered by the shared
-scalar host aligner (``InlineAlignService``), with the same routing as the
+Requests outside the kernels' banded regime are answered by the scalar
+host aligner (``InlineAlignService``), with the same routing as the
 reference, so ``n_device`` / ``n_host`` match it request for request.
 """
 
@@ -24,9 +24,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from circminer_tpu.ops import align as al
-
 from . import _ext
+from . import align as al
 from .pallas_align import (POS, _diff_diag, _iota, _last_diag, _pad_rows,
                            drop_local_sc_batch, edit_sc_batch, edit_sc_scan,
                            xdrop_batch, xdrop_scan)
@@ -212,7 +211,7 @@ class DeviceAlignService:
     B = 1024  # fixed dispatch rows (shorter waves pad, longer ones chunk)
 
     def __init__(self, cfg, sm: al.ScoreMat = None, *, device):
-        from circminer_tpu.pipeline.extend import InlineAlignService
+        from ..pipeline.extend import InlineAlignService
         self.cfg = cfg
         self.device = torch.device(device)
         self.sm = sm if sm is not None else al.ScoreMat()

@@ -3,13 +3,11 @@
 A copy of the numpy/Python part of ``circminer_tpu/ops/chain.py``: the
 ``Chain`` record, ``check_junction_host``, the ``chain_seeds_host`` oracle
 (reference chain.cpp:28-298) and ``extract_kbest``.  The original module
-imports jax at module level for its batched device DP, and the shared host
-modules (``pipeline/mapping.py``, ``pipeline/circ.py``,
-``ops/chain_native.py``) import ``Chain`` from it.  Where jax cannot be
-imported, ``circminer_tpu_torch/__init__.py`` registers this module under
-the original's name so those host modules load unchanged.  The functions are
-kept source-identical to the original (pinned by tests/test_torch_wave.py).
-The torch device half of chaining is a later slice.
+imports jax at module level for its batched device DP, which the port has
+in ``ops/chain_device.py``; the host modules (``pipeline/mapping.py``,
+``pipeline/circ.py``, ``ops/chain_native.py``) import ``Chain`` from here.
+The functions are kept source-identical to the original (pinned by
+tests/test_torch_selfcontained.py).
 """
 
 from __future__ import annotations
@@ -19,7 +17,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from circminer_tpu.config import Config, INF
+from ..config import Config, INF
 
 REWARD_COEF = 2e4   # chain.cpp:10
 PENALTY_COEF = 0.1  # chain.cpp:11

@@ -37,12 +37,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from circminer_tpu.config import (CONCRD, DISCRD, CHIORF, CHIBSJ, CHI2BSJ,
-                                  CONGEN, CHIFUS, CONGNM, OEA2, CANDID,
-                                  OEANCH, ORPHAN, NOPROC_MANYHIT,
-                                  NOPROC_NOMATCH, INF, MAXDISCRDTLEN,
-                                  LARIAT2BEGTH)
-
+from ..config import (CONCRD, DISCRD, CHIORF, CHIBSJ, CHI2BSJ, CONGEN,
+                      CHIFUS, CONGNM, OEA2, CANDID, OEANCH, ORPHAN,
+                      NOPROC_MANYHIT, NOPROC_NOMATCH, INF, MAXDISCRDTLEN,
+                      LARIAT2BEGTH)
 from .align_device import one_side_batch
 from .pallas_align import POS, xdrop_batch
 

@@ -1,11 +1,11 @@
-"""The per-read host seed lookup of the reference's oracle mapper, jax-free.
+"""The per-read host seed lookup of the oracle mapper, free of JAX.
 
-``circminer_tpu.pipeline.mapping.make_host_seeder`` (the seeder of the
-per-read Python oracle, ``--device host``) imports ``lookup_read_host``
-from ``circminer_tpu/ops/seed.py``, which imports jax at module level.
-This module holds copies of ``SeedHits``, ``lookup_read_host`` and
-``make_host_seeder`` that import only numpy and the shared host modules;
-``tests/test_torch_se.py`` pins them to the reference's source.
+The reference keeps ``SeedHits`` and ``lookup_read_host`` (the numpy
+seeder of the per-read Python oracle, ``--device host``) in
+``circminer_tpu/ops/seed.py``, which imports jax at module level.  This
+module holds verbatim copies of the two; ``pipeline/mapping.py``'s
+``make_host_seeder`` imports them from here, and
+``tests/test_torch_selfcontained.py`` pins them to the reference's source.
 """
 
 from __future__ import annotations
@@ -14,10 +14,10 @@ from typing import NamedTuple
 
 import numpy as np
 
-from circminer_tpu.config import Config
-from circminer_tpu.index.build import ContigIndex
-from circminer_tpu.ops.encode import hash_at
-from circminer_tpu.utils import logging as ulog
+from ..config import Config
+from ..index.build import ContigIndex
+from ..utils import logging as ulog
+from .encode import hash_at
 
 
 class SeedHits(NamedTuple):
@@ -74,25 +74,3 @@ def lookup_read_host(codes: np.ndarray, ci: ContigIndex, cfg: Config):
         ulog.vaf(1, "OV valids: %d", 0)
     return SeedHits(qpos, start, count, high)
 
-
-def make_host_seeder(ci, cfg: Config):
-    """Host seed lookup closure: seq -> (qpos, seed_pos, high_hit_count)."""
-
-    def seeder(seq: np.ndarray):
-        hits = lookup_read_host(seq, ci, cfg)
-        n_slots = cfg.max_seg_cnt
-        qpos = hits.qpos.copy()
-        seed_pos = []
-        high = 0
-        for s in range(n_slots):
-            if hits.count[s] > 0:
-                seed_pos.append(
-                    ci.entry_pos[hits.start[s]:hits.start[s] + hits.count[s]]
-                    .astype(np.int64))
-            else:
-                seed_pos.append(np.zeros(0, dtype=np.int64))
-            if s % 2 == 0 and hits.high_hit[s]:
-                high += 1
-        return qpos, seed_pos, high
-
-    return seeder

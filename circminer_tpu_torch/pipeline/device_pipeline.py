@@ -1,6 +1,6 @@
 """Batched mapping pipeline on torch: device seed lookup, the dense chain DP,
 the fused device-full step and wave-batched device extension, with the
-shared host C++ chain and finish engines.
+port's host C++ chain and finish engines (``native/*.cpp``).
 
 Counterpart of the reference's ``DeviceMappingPipeline``
 (``circminer_tpu/pipeline/device_pipeline.py``).  Executors:
@@ -59,24 +59,23 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from circminer_tpu.config import Config, CHIBSJ, CHI2BSJ, CONCRD
-from circminer_tpu.ops.align import ScoreMat
-from circminer_tpu.io.fastq import RemainWriter, iter_remain_pairs
-from circminer_tpu.ops.chain_native import NativeChainer
-from circminer_tpu.ops.filter_native import NativeFilter
-from circminer_tpu.ops.seed_native import NativeSeeder
-from circminer_tpu.pipeline.extend_batch import run_waves
-from circminer_tpu.pipeline.mapping import Mapper, ReadRecord
-from circminer_tpu.pipeline.types import MatchedRead, round_skip
-from circminer_tpu.utils import logging as ulog
-from circminer_tpu.utils.timing import GLOBAL_TIMER as T
-
 from ..annotation.device import AnnoDevice, FinishAnnoDevice
+from ..config import Config, CHIBSJ, CHI2BSJ, CONCRD
 from ..device import resolve_device
+from ..io.fastq import RemainWriter, iter_remain_pairs
+from ..ops.align import ScoreMat
 from ..ops.align_device import DeviceAlignService
 from ..ops.chain_device import gather_and_chain_device
+from ..ops.chain_native import NativeChainer
 from ..ops.device_full import DEFER_CAUSES, device_full_step
+from ..ops.filter_native import NativeFilter
 from ..ops.seed import build_device_prefix, lookup_batch_device
+from ..ops.seed_native import NativeSeeder
+from .extend_batch import run_waves
+from .mapping import Mapper, ReadRecord
+from .types import MatchedRead, round_skip
+from ..utils import logging as ulog
+from ..utils.timing import GLOBAL_TIMER as T
 
 CHAIN_EXECS = ("auto", "device", "device-chain", "device-full", "native")
 EXTEND_EXECS = ("device", "native")
@@ -101,7 +100,7 @@ class ContigDeviceState:
 
     @classmethod
     def from_contig_index(cls, ci, cfg: Config, device) -> "ContigDeviceState":
-        """Put the shared numpy ``ContigIndex`` (``build_genome_index`` /
+        """Put the numpy ``ContigIndex`` (``build_genome_index`` /
         ``load_genome_index``) on ``device``.  The checksum stays int16 and
         is upcast per bisect probe."""
         dev = torch.device(device)
@@ -350,7 +349,7 @@ class DeviceMappingPipeline:
                 blob = from_host(pending)
             cnt_b = cf["cnt"][rows]
             with T.phase(f"gather_cap{cap}"):
-                # positions re-gathered on the host from the shared table
+                # positions re-gathered on the host from the host table
                 pos_b = seeder.gather(cf["start"][rows],
                                       np.minimum(cnt_b, cap), cap)
             with T.phase(f"extract_cap{cap}"):

@@ -1,8 +1,10 @@
-"""A torch.profiler trace around a region (``--trace-dir``).
+"""Phase timers and a torch.profiler trace around a region (``--trace-dir``).
 
-Counterpart of ``circminer_tpu.utils.timing.device_trace`` (a
-``jax.profiler`` trace).  The phase timers themselves are the reference's
-``GLOBAL_TIMER``, which is plain Python and shared.
+``PhaseTimer``, ``GLOBAL_TIMER`` and ``timed`` are the reference's
+(``circminer_tpu/utils/timing.py``), copied verbatim: named wall-clock
+accumulators the pipeline attributes host, device and transfer time to.
+``device_trace`` is the port's counterpart of the reference's
+``jax.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -10,10 +12,58 @@ from __future__ import annotations
 import contextlib
 import os
 import sys
-from typing import Iterator
+import time
+from collections import defaultdict
+from typing import Dict, Iterator
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+
+class PhaseTimer:
+    """Named wall-clock accumulators: ``with timer.phase("chain"): ...``."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def phase(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.totals[name] += dt
+            self.counts[name] += 1
+
+    def add(self, name: str, seconds: float) -> None:
+        self.totals[name] += seconds
+        self.counts[name] += 1
+
+    def report(self) -> str:
+        width = max((len(k) for k in self.totals), default=4)
+        lines = []
+        for name, tot in sorted(self.totals.items(), key=lambda kv: -kv[1]):
+            n = self.counts[name]
+            lines.append(f"{name:<{width}}  {tot:9.3f}s  x{n:<6d} "
+                         f"{tot / max(1, n) * 1000:9.2f} ms/call")
+        return "\n".join(lines)
+
+    def reset(self) -> None:
+        self.totals.clear()
+        self.counts.clear()
+
+
+#: process-wide timer used by the pipeline when verbosity is enabled
+GLOBAL_TIMER = PhaseTimer()
+
+
+@contextlib.contextmanager
+def timed(name: str, timer: PhaseTimer = None) -> Iterator[None]:
+    t = timer if timer is not None else GLOBAL_TIMER
+    with t.phase(name):
+        yield
 
 
 @contextlib.contextmanager

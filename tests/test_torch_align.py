@@ -21,6 +21,7 @@ from circminer_tpu_torch.ops import _ext
 from circminer_tpu_torch.ops import align_device as tad
 from circminer_tpu_torch.ops import pallas_align as tpa
 from test_pallas_align import _random_pairs
+from test_torch_selfcontained import port_config
 
 W, MAX_ED, MAX_SC = 3, 4, 7
 SM = al.ScoreMat()
@@ -176,7 +177,7 @@ def _mixed_wave(rng, n_req=260):
 def test_service_matches_jax_service_on_mixed_wave():
     cfg = Config(kmer=20, max_read_len=120)
     reqs = _mixed_wave(np.random.default_rng(19))
-    port = tad.DeviceAlignService(cfg, device="cpu")
+    port = tad.DeviceAlignService(port_config(cfg), device="cpu")
     ref = jad.DeviceAlignService(cfg)
     got = port.solve_batch(reqs)
     want = ref.solve_batch(reqs)
@@ -188,27 +189,38 @@ def test_service_matches_jax_service_on_mixed_wave():
     assert len(kinds) == 7
 
 
+BATCHES = (1, 33, 1024, 8192)
+
+
 @pytest.mark.cuda
-def test_kernels_match_plain_on_card(cuda_device):
-    """Each CUDA kernel bit-equal to its plain version on the card, and
-    each launch counted."""
-    s, t, n, m, wv = (x.to(cuda_device) for x in _th(*_batch(20, B=256)))
+@pytest.mark.parametrize("w", [0, 1, 2, 3, 5, 8, 31, 127])
+def test_kernels_match_plain_on_card(cuda_device, w):
+    """Each CUDA kernel bit-equal to its plain version on the card at band
+    w (one lane per item up to w = 6, lane groups above) and B in
+    BATCHES, and each launch counted."""
+    from chip_smoke import kernel_inputs
+    xd_kw = dict(XD_KW, w=w)
+    ed_kw = dict(ED_KW, w=w)
     _ext.reset_launches()
-    pairs = [
-        (tpa.xdrop_batch(s, t, n, m, **XD_KW),
-         tpa.xdrop_scan(s, t, n, m, **XD_KW)),
-        (tpa.edit_sc_batch(s, t, n, m, **ED_KW),
-         tpa.edit_sc_scan(s, t, n, m, **ED_KW)),
-        (tad.edit_end_batch(s, t, n, m, w=W, max_ed=MAX_ED),
-         tad.edit_end_scan(s, t, n, m, w=W, max_ed=MAX_ED)),
-        (tad.one_side_batch(s, t, n, m, wv), tad.one_side_scan(s, t, n, m,
-                                                               wv)),
-    ]
-    torch.cuda.synchronize()
-    for got, want in pairs:
-        got = tuple(x.cpu() for x in got) if isinstance(got, tuple) \
-            else got.cpu()
-        want = tuple(x.cpu() for x in want) if isinstance(want, tuple) \
-            else want.cpu()
-        _eq(got, want)
-    assert all(v == 1 for v in _ext.LAUNCHES.values()), _ext.LAUNCHES
+    for B in BATCHES:
+        s, t, n, m, wv = (x.to(cuda_device) for x in _th(*kernel_inputs(
+            np.random.default_rng(B + w), B, w)))
+        pairs = [
+            (tpa.xdrop_batch(s, t, n, m, **xd_kw),
+             tpa.xdrop_scan(s, t, n, m, **xd_kw)),
+            (tpa.edit_sc_batch(s, t, n, m, **ed_kw),
+             tpa.edit_sc_scan(s, t, n, m, **ed_kw)),
+            (tad.edit_end_batch(s, t, n, m, w=w, max_ed=MAX_ED),
+             tad.edit_end_scan(s, t, n, m, w=w, max_ed=MAX_ED)),
+            (tad.one_side_batch(s, t, n, m, wv),
+             tad.one_side_scan(s, t, n, m, wv)),
+        ]
+        torch.cuda.synchronize()
+        for got, want in pairs:
+            got = tuple(x.cpu() for x in got) if isinstance(got, tuple) \
+                else got.cpu()
+            want = tuple(x.cpu() for x in want) if isinstance(want, tuple) \
+                else want.cpu()
+            _eq(got, want)
+    assert all(v == len(BATCHES) for v in _ext.LAUNCHES.values()), \
+        _ext.LAUNCHES

@@ -22,6 +22,7 @@ from circminer_tpu.pipeline.device_pipeline import \
 from circminer_tpu.sim import make_genome, simulate_reads
 from circminer_tpu_torch.pipeline.device_pipeline import DeviceMappingPipeline
 from test_extend_batch import _key, make_rec
+from test_torch_selfcontained import port_config
 
 BATCH = 32
 
@@ -68,7 +69,7 @@ def sim(tmp_path_factory):
 
 def _auto(sim, device="cpu"):
     cfg, gi, db, _ = sim
-    return DeviceMappingPipeline(db, gi, cfg, batch_size=BATCH,
+    return DeviceMappingPipeline(db, gi, port_config(cfg), batch_size=BATCH,
                                  chain_exec="auto", device=device)
 
 
@@ -135,7 +136,7 @@ def test_auto_map_equals_native_and_jax_auto(sim, monkeypatch):
     cfg, gi, db, _ = sim
     pipe = _auto(sim)
     pipe.warmup()
-    native = DeviceMappingPipeline(db, gi, cfg, batch_size=BATCH,
+    native = DeviceMappingPipeline(db, gi, port_config(cfg), batch_size=BATCH,
                                    chain_exec="native")
     got = _map(pipe, sim)
     assert got == _map(native, sim)

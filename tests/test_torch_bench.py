@@ -1,5 +1,6 @@
 """The torch port's bench (``python -m circminer_tpu_torch.bench``) with jax
-blocked, on the CPU, against the reference's root ``bench.py``.
+and the reference package blocked, on the CPU, against the reference's root
+``bench.py``.
 
 Small runs of the reference bench's smoke configuration (100 kbp genome,
 128 pairs, 64-pair batches): the port's gpu-full (with the stage-2 device
@@ -20,7 +21,8 @@ from test_torch_nojax import BLOCK_JAX, REPO
 RUN_BENCH = BLOCK_JAX + r'''
 from circminer_tpu_torch.bench import main
 rc = main(sys.argv[1:])
-leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+leaked = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "circminer_tpu")]
 assert not leaked, leaked
 sys.exit(rc)
 '''

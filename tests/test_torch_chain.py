@@ -29,6 +29,7 @@ from circminer_tpu_torch.ops import device_finish as tfin
 from circminer_tpu_torch.ops import seed as tseed
 from circminer_tpu_torch.pipeline.device_pipeline import DeviceMappingPipeline
 from test_device_full import FIELDS, make_pairs
+from test_torch_selfcontained import port_config
 
 CAP = 16
 ANNO_FIELDS = ("nb_bits", "iv_spos", "iv_epos", "iv_max_end", "iv_min_end",
@@ -284,11 +285,12 @@ def _map(pipe, reads, cfg, warm=True):
 
 def test_gpu_chain_pipeline_matches_native_and_jax(full_lib):
     cfg, gi, db, reads = full_lib
-    port = DeviceMappingPipeline(db, gi, cfg, batch_size=64,
+    port = DeviceMappingPipeline(db, gi, port_config(cfg), batch_size=64,
                                  chain_exec="device-chain", device="cpu")
     got = _map(port, reads, cfg)
-    native = _map(DeviceMappingPipeline(db, gi, cfg, batch_size=64,
-                                        chain_exec="native"), reads, cfg)
+    native = _map(DeviceMappingPipeline(db, gi, port_config(cfg),
+                                        batch_size=64, chain_exec="native"),
+                  reads, cfg)
     ref = _map(JaxPipeline(db, gi, cfg, batch_size=64,
                            chain_exec="device-chain"), reads, cfg,
                warm=False)   # the JAX warm-up compiles every bucket shape

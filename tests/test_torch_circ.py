@@ -10,6 +10,7 @@ per-read Python oracle's circ_res and candidate lines exactly, with the
 same device / host request counts as the JAX wave service."""
 
 import ast
+import importlib.util
 import inspect
 import textwrap
 
@@ -19,6 +20,7 @@ import torch
 from circminer_tpu.pipeline.circ import ProcessCirc as JaxProcessCirc
 from circminer_tpu_torch.pipeline.circ import ProcessCirc
 from test_circ_device import _key, bsj_stream  # noqa: F401  (fixture)
+from test_torch_selfcontained import port_config
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -39,11 +41,12 @@ def cuda_device():
 def test_port_stage2_matches_jax_and_oracle(bsj_stream, tmp_path):
     db, gi, cfg, bsj = bsj_stream
     assert len(bsj) > 50
-    oracle = JaxProcessCirc(db, gi, cfg, str(tmp_path / "oracle"))
+    oracle = JaxProcessCirc(db, gi, port_config(cfg), str(tmp_path / "oracle"))
     oracle.run(list(bsj), native=False)
-    ref = JaxProcessCirc(db, gi, cfg, str(tmp_path / "jax"))
+    ref = JaxProcessCirc(db, gi, port_config(cfg), str(tmp_path / "jax"))
     ref.run(list(bsj), device_ext=True)
-    port = ProcessCirc(db, gi, cfg, str(tmp_path / "port"), device="cpu")
+    port = ProcessCirc(db, gi, port_config(cfg), str(tmp_path / "port"),
+                       device="cpu")
     port.run(list(bsj), device_ext=True)
 
     want = [_key(c) for c in oracle.circ_res]
@@ -79,16 +82,21 @@ def test_run_device_is_the_reference_but_for_the_service():
     assert port == ref
     src = inspect.getsource(ProcessCirc._run_device)
     assert "svc = DeviceAlignService(self.cfg, device=self.device)" in src
-    assert ProcessCirc._run_device.__globals__["DeviceAlignService"].__module__ \
-        == "circminer_tpu_torch.ops.align_device"
+    fn = ast.parse(textwrap.dedent(src)).body[0]
+    (imp,) = [n for n in ast.walk(fn) if isinstance(n, ast.ImportFrom)
+              and [a.name for a in n.names] == ["DeviceAlignService"]]
+    assert importlib.util.resolve_name(
+        "." * imp.level + imp.module, ProcessCirc.__module__.rsplit(
+            ".", 1)[0]) == "circminer_tpu_torch.ops.align_device"
 
 
 def test_no_silent_fallback_to_cpu(bsj_stream, tmp_path):
     db, gi, cfg, _ = bsj_stream
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            ProcessCirc(db, gi, cfg, str(tmp_path / "x"), device="cuda")
-    assert ProcessCirc(db, gi, cfg, str(tmp_path / "y"),
+            ProcessCirc(db, gi, port_config(cfg), str(tmp_path / "x"),
+                        device="cuda")
+    assert ProcessCirc(db, gi, port_config(cfg), str(tmp_path / "y"),
                        device="cpu").device.type == "cpu"
 
 
@@ -98,10 +106,10 @@ def test_port_stage2_on_card_matches_host(bsj_stream, tmp_path, cuda_device):
     with edit_sc launched."""
     from circminer_tpu_torch.ops import _ext
     db, gi, cfg, bsj = bsj_stream
-    host = JaxProcessCirc(db, gi, cfg, str(tmp_path / "host"))
+    host = JaxProcessCirc(db, gi, port_config(cfg), str(tmp_path / "host"))
     host.run(list(bsj))
     _ext.reset_launches()
-    port = ProcessCirc(db, gi, cfg, str(tmp_path / "card"),
+    port = ProcessCirc(db, gi, port_config(cfg), str(tmp_path / "card"),
                        device=cuda_device)
     port.run(list(bsj), device_ext=True)
     assert [_key(c) for c in port.circ_res] == \

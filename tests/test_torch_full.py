@@ -38,6 +38,7 @@ from circminer_tpu_torch.pipeline.device_pipeline import (
     ContigDeviceState, DeviceMappingPipeline, encode_pairs)
 from test_device_full import FIELDS, make_pairs
 from test_torch_align import _batch
+from test_torch_selfcontained import port_config
 
 BATCH = 64
 W, MAX_ED, MAX_SC = 3, 4, 7
@@ -91,7 +92,8 @@ class World:
         self.jgenome = jp.full_genome[0]
         self.statics = {**jp._full_statics(), **SMALL_POOLS}
         ci = gi.contigs[0]
-        self.tst = ContigDeviceState.from_contig_index(ci, cfg, "cpu")
+        self.tst = ContigDeviceState.from_contig_index(ci, port_config(cfg),
+                                                       "cpu")
         self.tad = AnnoDevice.from_contig(db.contigs[0], seg_pad=16,
                                           device="cpu")
         self.tfa = FinishAnnoDevice.from_contig(db.contigs[0],
@@ -360,9 +362,9 @@ def map_fields(pipe, reads, cfg):
 def test_gpu_full_pipeline_matches_native(world):
     cfg, gi, db, reads = world.cfg, world.gi, world.db, world.reads
     full = small_pools(DeviceMappingPipeline(
-        db, gi, cfg, batch_size=BATCH, chain_exec="device-full",
+        db, gi, port_config(cfg), batch_size=BATCH, chain_exec="device-full",
         device="cpu"))
-    native = DeviceMappingPipeline(db, gi, cfg, batch_size=BATCH,
+    native = DeviceMappingPipeline(db, gi, port_config(cfg), batch_size=BATCH,
                                    chain_exec="native")
     got = map_fields(full, reads, cfg)
     want = map_fields(native, reads, cfg)

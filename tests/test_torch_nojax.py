@@ -1,12 +1,12 @@
-"""The torch port runs where JAX is not installed.
+"""The torch port runs where neither JAX nor the reference is installed.
 
-A subprocess blocks every ``jax`` import with a ``sys.meta_path`` finder,
-imports every module of circminer_tpu_torch, and runs the port's CLI on the
-CPU on a small make_synthetic-style dataset (index, paired-end mapping
-under each executor, stage 2 on the host or the device; single-end
-mapping; a --trace-dir run).  Its outputs must be byte-equal to those of
-the reference CLI (``circminer_tpu.cli --device native``) on the same
-inputs."""
+A subprocess blocks every ``jax`` and every ``circminer_tpu`` import with a
+``sys.meta_path`` finder, imports every module of circminer_tpu_torch, and
+runs the port's CLI on the CPU on a small make_synthetic-style dataset
+(index, paired-end mapping under each executor, stage 2 on the host or the
+device; single-end mapping; a --trace-dir run).  Its outputs must be
+byte-equal to those of the reference CLI (``circminer_tpu.cli --device
+native``, run in a process of its own) on the same inputs."""
 
 import gzip
 import json
@@ -28,8 +28,9 @@ BLOCK_JAX = r'''
 import importlib.abc, sys
 
 class _NoJax(importlib.abc.MetaPathFinder):
+    # jax, and the JAX reference package with every module in it
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "circminer_tpu"):
             raise ModuleNotFoundError(f"No module named {name!r} (blocked)")
         return None
 
@@ -44,9 +45,8 @@ names = [m.name for m in pkgutil.walk_packages(circminer_tpu_torch.__path__,
          if not m.name.endswith("__main__")]
 for name in names:
     importlib.import_module(name)
-import circminer_tpu.ops.chain as chain
-assert chain.__name__ == "circminer_tpu_torch.ops.chain", chain.__name__
-leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+leaked = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "circminer_tpu")]
 assert not leaked, leaked
 print("IMPORTED", len(names))
 '''
@@ -54,7 +54,8 @@ print("IMPORTED", len(names))
 RUN_CLI = BLOCK_JAX + r'''
 from circminer_tpu_torch.cli import main
 rc = main(sys.argv[1:])
-leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+leaked = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "circminer_tpu")]
 assert not leaked, leaked
 sys.exit(rc)
 '''
@@ -94,14 +95,14 @@ def test_every_port_module_imports_without_jax(tmp_path):
         if not m.name.endswith("__main__")]
     assert n == len(mods) >= 10
     assert {f"circminer_tpu_torch.{m}" for m in (
-        "bench", "pipeline.circ", "ops.seed_host", "utils.timing")} <= \
+        "bench", "pipeline.circ", "ops.seed_host", "utils.timing",
+        "config", "sim", "ops.filter_native", "pipeline.mapping")} <= \
         set(mods)
 
 
 def test_port_loads_no_jax_where_jax_is_installed(tmp_path, dataset):
-    """With jax importable (as here), mapping through the port still
-    loads none of it: the guard keeps the reference's jax-backed chain
-    module out."""
+    """With jax and the reference importable (as here), mapping through the
+    port still loads neither."""
     script = IMPORT_ALL.replace(BLOCK_JAX, "import sys\n") + f"""
 from circminer_tpu_torch.cli import main
 d = {str(dataset)!r}
@@ -109,11 +110,13 @@ assert main(["--index", "-r", f"{{d}}/ref.fa", "-k", "20"]) == 0
 assert main(["-r", f"{{d}}/ref.fa", "-g", f"{{d}}/ref.gtf", "-1",
              f"{{d}}/R1.fq", "-2", f"{{d}}/R2.fq", "-o", "out", "--device",
              "gpu-wave", "--torch-device", "cpu"]) == 0
-leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+leaked = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "circminer_tpu")]
 assert not leaked, leaked
 """
     import importlib.util
     assert importlib.util.find_spec("jax") is not None
+    assert importlib.util.find_spec("circminer_tpu") is not None
     _run([], tmp_path, script)
 
 
@@ -160,12 +163,15 @@ def native_outputs(dataset):
 
 
 @pytest.mark.parametrize("device,tag", [("gpu-chain", "mapping done"),
-                                        ("gpu-full", "device-full: 200 reads")])
+                                        ("gpu-full", "device-full: 200 reads"),
+                                        ("native", "mapping done")])
 def test_cli_without_jax_chain_and_full_match_native(dataset, native_outputs,
                                                      device, tag):
-    """The device-chain and fused device-full executors through the port's
-    CLI with jax blocked (64-pair batches keep the CPU run short); gpu-full
-    also runs the stage-2 extension DPs on the torch device."""
+    """The device-chain and fused device-full executors, and the port's own
+    native executor (its C++ engines built from circminer_tpu_torch/native),
+    through the port's CLI with jax and the reference blocked (64-pair
+    batches keep the CPU run short); gpu-full also runs the stage-2
+    extension DPs on the torch device."""
     d = dataset
     res = _run(["-r", "ref.fa", "-g", "ref.gtf", "-1", "R1.fq", "-2",
                 "R2.fq", "--pam", "-o", device, "--device", device,

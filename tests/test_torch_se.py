@@ -32,10 +32,12 @@ from circminer_tpu.pipeline.device_pipeline import \
 from circminer_tpu.pipeline.mapping import Mapper
 from circminer_tpu.sim import make_genome, simulate_reads
 from circminer_tpu_torch.ops import seed_host
+from circminer_tpu_torch.pipeline import mapping as tmapping
 from circminer_tpu_torch.pipeline.device_pipeline import (
     DeviceMappingPipeline, encode_se)
 from test_extend_batch import _key
 from test_se_mapping import make_rec
+from test_torch_selfcontained import port_config
 
 BATCH = 16
 
@@ -75,7 +77,7 @@ def world(tmp_path_factory):
     seqs.append(decode_seq(revcomp(encode_seq(g.seq[s - 1:s - 1 + 100]))))
     oracle = [make_rec(cfg, q) for q in seqs]
     mapper = Mapper(db, 0, gi.contigs[0].codes, cfg,
-                    seed_host.make_host_seeder(gi.contigs[0], cfg))
+                    tmapping.make_host_seeder(gi.contigs[0], port_config(cfg)))
     for rec in oracle:
         mapper.process_read_se(rec)
     return cfg, gi, db, seqs, [r.mr for r in oracle]
@@ -98,7 +100,7 @@ def _concordant_view(mr):
                           ("device-full", "native")])
 def test_se_matches_jax_pipeline_and_oracle(world, chain_exec, ref_exec):
     cfg, gi, db, seqs, oracle = world
-    port = DeviceMappingPipeline(db, gi, cfg, batch_size=BATCH,
+    port = DeviceMappingPipeline(db, gi, port_config(cfg), batch_size=BATCH,
                                  chain_exec=chain_exec, device="cpu")
     ref = JaxPipeline(db, gi, cfg, batch_size=BATCH, chain_exec=ref_exec)
     got = _map(port, cfg, seqs)
@@ -155,16 +157,18 @@ def _without_lines(fn, drop):
 
 def test_host_seeder_is_the_reference_source():
     """The jax-free host seeder of --device host is the reference's code:
-    lookup_read_host but for its function-local imports, make_host_seeder
-    but for its import of lookup_read_host."""
+    lookup_read_host but for its function-local imports, and the port's
+    make_host_seeder (pipeline/mapping.py) but for its import of
+    lookup_read_host, which it takes from ops/seed_host.py."""
     assert inspect.getsource(seed_host.SeedHits) == \
         inspect.getsource(jseed.SeedHits)
     imports = {"from .encode import hash_at",
                "from ..utils import logging as ulog",
-               "from ..ops.seed import lookup_read_host"}
+               "from ..ops.seed import lookup_read_host",
+               "from ..ops.seed_host import lookup_read_host"}
     assert _without_lines(seed_host.lookup_read_host, imports) == \
         _without_lines(jseed.lookup_read_host, imports)
-    assert _without_lines(seed_host.make_host_seeder, imports) == \
+    assert _without_lines(tmapping.make_host_seeder, imports) == \
         _without_lines(jmapping.make_host_seeder, imports)
 
 
@@ -173,9 +177,9 @@ def test_host_seeder_is_the_reference_source():
                                         "device-full"])
 def test_se_on_card_matches_native(world, chain_exec, cuda_device):
     cfg, gi, db, seqs, _ = world
-    port = DeviceMappingPipeline(db, gi, cfg, batch_size=BATCH,
+    port = DeviceMappingPipeline(db, gi, port_config(cfg), batch_size=BATCH,
                                  chain_exec=chain_exec, device=cuda_device)
-    native = DeviceMappingPipeline(db, gi, cfg, batch_size=BATCH,
+    native = DeviceMappingPipeline(db, gi, port_config(cfg), batch_size=BATCH,
                                    chain_exec="native", device="cpu")
     assert [_key(m) for m in _map(port, cfg, seqs)] == \
         [_key(m) for m in _map(native, cfg, seqs)]
@@ -186,16 +190,19 @@ def test_se_python_finish_under_trace_matches(world, capfd):
     trace channel), in the port as in the reference: equal state, and the
     oracle's where it is concordant."""
     from circminer_tpu.utils import logging as ulog
+    from circminer_tpu_torch.utils import logging as tulog
     cfg, gi, db, seqs, oracle = world
-    port = DeviceMappingPipeline(db, gi, cfg, batch_size=BATCH,
+    port = DeviceMappingPipeline(db, gi, port_config(cfg), batch_size=BATCH,
                                  chain_exec="device", device="cpu")
     ref = JaxPipeline(db, gi, cfg, batch_size=BATCH, chain_exec="native")
     level = ulog.TRACE_LEVEL
-    ulog.set_trace_level(1)
+    ulog.set_trace_level(1)      # each package has its own trace channel
+    tulog.set_trace_level(1)
     try:
         got, want = _map(port, cfg, seqs), _map(ref, cfg, seqs)
     finally:
         ulog.set_trace_level(level)
+        tulog.set_trace_level(level)
     capfd.readouterr()
     assert [_key(m) for m in got] == [_key(m) for m in want]
     assert [_concordant_view(m) for m in got] == \

@@ -13,6 +13,7 @@ from circminer_tpu.ops.seed_native import NativeSeeder
 from circminer_tpu_torch.ops import seed as tseed
 from circminer_tpu_torch.pipeline.device_pipeline import (ContigDeviceState,
                                                           lookup_even)
+from test_torch_selfcontained import port_config
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -117,9 +118,9 @@ def test_lookup_even_matches_native_seeder():
     codes[20_000:22_000] = codes[5_000:7_000]
     ci = build_contig_index(codes, "1", cfg)
     reads, lens = _reads(rng, codes, 48, 120, 30)
-    st = ContigDeviceState.from_contig_index(ci, cfg, "cpu")
+    st = ContigDeviceState.from_contig_index(ci, port_config(cfg), "cpu")
     packed = lookup_even(torch.from_numpy(reads), torch.from_numpy(lens), st,
-                         cfg).numpy()
+                         port_config(cfg)).numpy()
     _, start, cnt, high = NativeSeeder(ci, cfg).lookup(reads, lens)
     NL = cfg.n_kmer_lists
     np.testing.assert_array_equal(packed[:, :NL], start)
@@ -133,8 +134,8 @@ def test_lookup_on_card_matches_cpu(small, cuda_device):
     cfg, ci, reads, lens = small
     outs = []
     for dev in ("cpu", cuda_device):
-        st = ContigDeviceState.from_contig_index(ci, cfg, dev)
+        st = ContigDeviceState.from_contig_index(ci, port_config(cfg), dev)
         outs.append(lookup_even(torch.from_numpy(reads).to(dev),
                                 torch.from_numpy(lens).to(dev), st,
-                                cfg).cpu().numpy())
+                                port_config(cfg)).cpu().numpy())
     np.testing.assert_array_equal(outs[0], outs[1])

@@ -16,6 +16,7 @@ from circminer_tpu.pipeline.device_pipeline import \
 from circminer_tpu_torch.pipeline.device_pipeline import DeviceMappingPipeline
 from test_device_full import FIELDS, make_pairs
 from test_device_walk import dense_lib  # noqa: F401  (module fixture)
+from test_torch_selfcontained import port_config
 
 BATCH = 128
 
@@ -39,14 +40,15 @@ def _run(pipe, reads, cfg, statics_patch=None):
 
 
 def _port(db, gi, cfg, reads, statics_patch=None):
-    pipe = DeviceMappingPipeline(db, gi, cfg, batch_size=BATCH,
+    pipe = DeviceMappingPipeline(db, gi, port_config(cfg), batch_size=BATCH,
                                  chain_exec="device-full", device="cpu")
     return _run(pipe, reads, cfg, statics_patch), pipe
 
 
 def _native(db, gi, cfg, reads):
-    return _run(DeviceMappingPipeline(db, gi, cfg, batch_size=BATCH,
-                                      chain_exec="native"), reads, cfg)
+    return _run(DeviceMappingPipeline(db, gi, port_config(cfg),
+                                      batch_size=BATCH, chain_exec="native"),
+                reads, cfg)
 
 
 def _assert_parity(got, want):

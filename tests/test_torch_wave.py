@@ -23,6 +23,7 @@ from circminer_tpu_torch.ops import chain as tchain
 from circminer_tpu_torch.pipeline.device_pipeline import (
     ContigDeviceState, DeviceMappingPipeline)
 from test_extend_batch import _key, make_rec
+from test_torch_selfcontained import port_config
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -60,7 +61,7 @@ def _map(pipe, reads, cfg):
 
 def test_wave_slice_matches_jax_pipeline(sim):
     cfg, gi, db, reads = sim
-    port = DeviceMappingPipeline(db, gi, cfg, batch_size=64,
+    port = DeviceMappingPipeline(db, gi, port_config(cfg), batch_size=64,
                                  chain_exec="device", extend_exec="device",
                                  device="cpu")
     ref = JaxPipeline(db, gi, cfg, batch_size=64, chain_exec="device",
@@ -82,7 +83,7 @@ def test_wave_slice_matches_jax_pipeline(sim):
                          [("device", "native"), ("native", "native")])
 def test_other_executors_match_jax_native(sim, chain_exec, extend_exec):
     cfg, gi, db, reads = sim
-    port = DeviceMappingPipeline(db, gi, cfg, batch_size=32,
+    port = DeviceMappingPipeline(db, gi, port_config(cfg), batch_size=32,
                                  chain_exec=chain_exec,
                                  extend_exec=extend_exec, device="cpu")
     ref = JaxPipeline(db, gi, cfg, batch_size=32, chain_exec="native")
@@ -117,12 +118,15 @@ def test_no_silent_fallback_to_cpu(sim):
     cfg, gi, db, _ = sim
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            DeviceMappingPipeline(db, gi, cfg, chain_exec="device",
-                                  device="cuda")
+            DeviceMappingPipeline(db, gi, port_config(cfg),
+                                  chain_exec="device", device="cuda")
     with pytest.raises(ValueError, match="chain_exec"):
-        DeviceMappingPipeline(db, gi, cfg, chain_exec="tpu", device="cpu")
+        DeviceMappingPipeline(db, gi, port_config(cfg), chain_exec="tpu",
+                              device="cpu")
     with pytest.raises(ValueError, match="device-full"):
-        DeviceMappingPipeline(db, gi, cfg, chain_exec="device-full",
-                              extend_exec="device", device="cpu")
+        DeviceMappingPipeline(db, gi, port_config(cfg),
+                              chain_exec="device-full", extend_exec="device",
+                              device="cpu")
     with pytest.raises(ValueError, match="extend_exec"):
-        DeviceMappingPipeline(db, gi, cfg, extend_exec="auto", device="cpu")
+        DeviceMappingPipeline(db, gi, port_config(cfg), extend_exec="auto",
+                              device="cpu")
