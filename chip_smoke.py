@@ -43,7 +43,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      ProcessCirc.run(device_ext=True) (speculate-and-select waves on the
      four DP kernels): circ_res and candidate lines equal to the host native
      stage 2, edit_sc launched; both wall times and the device / host
-     request counts reported;
+     request counts reported; edit_sc's inputs recorded there, each row
+     count bit-equal to its plain version and timed;
   9. the auto executor: its probe on the card under a fresh decision cache
      (CIRCMINER_CACHE_DIR), the measured detail and the choice; a second
      pipeline takes the choice from the cache without probing;
@@ -139,16 +140,20 @@ def device_ms(fn, kernel, iters, warm_s=0.2):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cuda_ms(fn, 1, warm_s)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-          and kernel in e.name]
-    # the tracer may drop the odd record; the mean is over those it kept
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and kernel in e.name]
+        # the tracer may drop records; the mean is over those it kept, and
+        # a run that lost more than a tenth is taken again
+        if len(ev) >= iters * 9 // 10:
+            break
     check(len(ev) >= iters * 9 // 10, f"the profiler saw {len(ev)} "
-          f"launches of {kernel} in {iters} calls")
+          f"launches of {kernel} in {iters} calls, three times")
     return sum(e.time_range.elapsed_us() for e in ev) / len(ev) / 1e3
 
 
@@ -171,9 +176,9 @@ def card_report():
 def kernel_inputs(rng, B, w, I=128):
     """Wave-shaped pair batch (as tests/test_pallas_align.py builds it):
     near-identical pairs, insertions, deletions and unrelated pairs, ~10%
-    with an N base, plus a few degenerate rows; wv in [0, w].  Indel and
-    row shapes follow w held to [1, 20], so that wide bands keep reads of
-    realistic length."""
+    with an N base, plus a few degenerate rows; wv in [0, w], with every
+    fourth row at w and the next at 0.  Indel and row shapes follow w held
+    to [1, 20], so that wide bands keep reads of realistic length."""
     import numpy as np
     wv_max, w = w, min(max(w, 1), 20)
     L = I - 1
@@ -209,13 +214,14 @@ def kernel_inputs(rng, B, w, I=128):
         t[b, :m] = base[:m]
         ns[b], ms[b] = n, m
     wv = rng.integers(0, wv_max + 1, size=B).astype(np.int32)
+    wv[0::4], wv[1::4] = wv_max, 0
     return s, t, ns, ms, wv
 
 
-# the two band-local kernels and the band widths / batch sizes they are held
-# to their plain versions at (one lane per item up to w = 6, lane groups
-# above it; B = 1 and 33 leave partial blocks)
-SWEEP_W = (0, 1, 2, 3, 5, 8, 31, 127)
+# the band widths / batch sizes the kernels are held to their plain versions
+# at (one lane per item up to w = 6, or 13 for one_side, lane groups above
+# it; B = 1 and 33 leave partial blocks)
+SWEEP_W = (0, 1, 2, 3, 5, 8, 14, 31, 127)
 SWEEP_B = (1, 33, 1024, 8192)
 # H100 SXM peaks at 700 W (NVIDIA's data sheet): HBM3 bandwidth, and int32
 # ALU throughput = 132 SMs x 64 INT32 lanes x the 1.98 GHz boost clock
@@ -252,7 +258,7 @@ def kernel_cases(s, t, n, m, wv, w, max_ed, max_sc, sm):
                                                max_ed=max_ed),
                      lambda: ad.edit_end_scan(s, t, n, m, w=w,
                                               max_ed=max_ed), 2),
-        "one_side": (lambda: ad.one_side_batch(s, t, n, m, wv),
+        "one_side": (lambda: ad.one_side_batch(s, t, n, m, wv, w=w),
                      lambda: ad.one_side_scan(s, t, n, m, wv), 1),
     }
 
@@ -459,20 +465,11 @@ def recording_inputs(store):
     return undo
 
 
-def phase_main_shapes(pipe, reads, cfg, batch):
-    """One more 4,096-pair step of the gpu-full map with the kernels'
-    inputs recorded: per (kernel, rows) its launches in the step, bit-
-    equality with the plain version on those inputs, and its time, bound
-    and chain floor there."""
-    import torch
+def time_recorded(store, where):
+    """Per (kernel, rows) of ``store`` (``recording_inputs``): its launches
+    ``where``, bit-equality with the plain version on the recorded inputs,
+    and its time, bound and chain floor there."""
     from circminer_tpu_torch.ops.align import ScoreMat
-    store = {}
-    undo = recording_inputs(store)
-    try:
-        pipe.map_stream(iter(make_pairs(reads[:batch], cfg)))
-        torch.cuda.synchronize()
-    finally:
-        undo()
     sm = ScoreMat()
     res = {}
     for (name, rows), rec in sorted(store.items()):
@@ -482,27 +479,57 @@ def phase_main_shapes(pipe, reads, cfg, batch):
             w, me, ms_ = st[0], 0, 0
             sm = ScoreMat(*st[1:])    # (w, mat, mis, ind, xd)
         elif name == "one_side":
-            w, me, ms_ = 0, 0, 0
+            w, me, ms_ = st[0], 0, 0
         else:
             w, me = st[0], st[1]
             ms_ = st[2] if name == "edit_sc" else 0
         kern, plain, ncols = kernel_cases(s, t, n, m, wv, w, me, ms_,
                                           sm)[name]
-        hold_to_plain(name, kern, plain, n, m, f" (main path, {rows} rows)")
+        hold_to_plain(name, kern, plain, n, m, f" ({where}, {rows} rows)")
         host = [None if x is None else x.cpu().numpy() for x in rec["args"]]
-        r = dict(rows=rows, launches_per_step=rec["count"],
+        r = dict(rows=rows, launches=rec["count"],
                  active_rows=int(((n > 0) & (m > 0)).sum()),
                  **measure(name, kern, plain, ncols, host, w, sm))
         res.setdefault(name, []).append(r)
-        log(f"[main-shapes] {name} x{rec['count']} per {batch}-pair step at "
-            f"{rows} rows ({r['active_rows']} with n, m > 0): bit-equal to "
-            f"plain; {r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms; bound "
+        log(f"[main-shapes] {name} x{rec['count']} {where} at {rows} rows "
+            f"({r['active_rows']} with n, m > 0): bit-equal to plain; "
+            f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms; bound "
             f"{r['bound_ms']:.6f} ms ({r['bound_by']}), chain floor "
             f"{r['chain_floor_ms']:.4f} ms over {r['diagonals']} diagonals")
     return res
 
 
-def phase_ab(sources, w=3, rows=(1024, 8192, 512), iters=200):
+def phase_main_shapes(pipe, reads, cfg, batch):
+    """One more 4,096-pair step of the gpu-full map with the kernels'
+    inputs recorded, each timed there (``time_recorded``)."""
+    import torch
+    store = {}
+    undo = recording_inputs(store)
+    try:
+        pipe.map_stream(iter(make_pairs(reads[:batch], cfg)))
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    return time_recorded(store, f"per {batch}-pair step")
+
+
+def declared_statics(src):
+    """{C symbol: int statics between L and the stream} as a kernel source
+    declares them: an older source may take fewer than ``_ext.KERNELS``
+    says (cm_one_side took no w before its window was sized from one)."""
+    import re
+    from circminer_tpu_torch.ops import _ext
+    with open(src) as f:
+        text = f.read()
+    out = {}
+    for sym, _ in _ext.KERNELS.values():
+        params = [p.strip() for p in re.search(
+            rf"int {sym}\(([^)]*)\)", text).group(1).split(",")]
+        out[sym] = len(params) - params.index("int L") - 2
+    return out
+
+
+def phase_ab(sources, w=3, rows=(1024, 4096, 8192, 512), iters=200):
     """``python3 chip_smoke.py --ab A.cu B.cu ...``: the kernels of several
     versions of the CUDA source on one card, in turns (A B ... then ... B
     A), each built with the port's nvcc flags and held bit-equal to the
@@ -522,14 +549,21 @@ def phase_ab(sources, w=3, rows=(1024, 8192, 512), iters=200):
         procs.append((src, so, subprocess.Popen(
             [_ext._nvcc(), *flags, "-o", so, src], stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)))
-    libs = {}
+    libs, n_statics = {}, {}
     for src, so, proc in procs:          # the builds run side by side
         _, err = proc.communicate()
         check(proc.returncode == 0, f"nvcc {src} failed:\n{err[-3000:]}")
-        libs[src] = _ext.bind(ctypes.CDLL(so))
+        n_statics[src] = declared_statics(src)   # each its own signature
+        libs[src] = ctypes.CDLL(so)
+        p, c = ctypes.c_void_p, ctypes.c_int
+        for sym, k in n_statics[src].items():
+            fn = getattr(libs[src], sym)
+            # s, t, n, m, wv, out, B, L, statics..., stream
+            fn.argtypes = [p] * 6 + [c, c] + [c] * k + [p]
+            fn.restype = c
     sm = ScoreMat()
     statics = {"xdrop": (w, sm.mat, sm.mis, sm.ind, sm.xd),
-               "edit_sc": (w, 4, 7), "edit_end": (w, 4), "one_side": ()}
+               "edit_sc": (w, 4, 7), "edit_end": (w, 4), "one_side": (w,)}
     ncols = {"xdrop": 3, "edit_sc": 4, "edit_end": 2, "one_side": 1}
     times = {src: {} for src in sources}
     for B in rows:
@@ -546,7 +580,8 @@ def phase_ab(sources, w=3, rows=(1024, 8192, 512), iters=200):
                     fn = getattr(libs[src], sym)
                     args = (s.data_ptr(), t.data_ptr(), n.data_ptr(),
                             m.data_ptr(), wv.data_ptr(), out.data_ptr(), B,
-                            s.shape[1], *statics[name], stream)
+                            s.shape[1],
+                            *statics[name][:n_statics[src][sym]], stream)
                     check(fn(*args) == 0, f"{src} {name} failed to launch")
                     torch.cuda.synchronize()
                     check(torch.equal(out, plain[name]),
@@ -919,6 +954,16 @@ def phase_stage2(cfg, gi, db, full, device):
         torch_sync(device)
         card_s = time.perf_counter() - t0
         launches = dict(_ext.LAUNCHES)
+        # the kernels' inputs come from a second, untimed run: recording
+        # copies them, and card_s stays the uninstrumented time
+        store = {}
+        undo = recording_inputs(store)
+        try:
+            ProcessCirc(db, gi, cfg, os.path.join(tmp, "rec"),
+                        device=device).run(list(bsj), device_ext=True)
+            torch_sync(device)
+        finally:
+            undo()
     got = [circ_key(c) for c in card.circ_res]
     want = [circ_key(c) for c in host.circ_res]
     if got != want:
@@ -937,7 +982,11 @@ def phase_stage2(cfg, gi, db, full, device):
         f"extension), host native {host_s:.3f} s; {len(want)} circ_res and "
         f"{len(host.candid_lines)} candidate lines equal; dev_align_stats "
         f"{st}; launches {launches}")
-    return launches, dict(card_s=card_s, host_s=host_s, stats=st)
+    # edit_sc runs only here: time it at the rows the stage-2 waves send
+    shapes = time_recorded({k: v for k, v in store.items()
+                            if k[0] == "edit_sc"}, "in stage 2")
+    return launches, dict(card_s=card_s, host_s=host_s, stats=st,
+                          shapes=shapes)
 
 
 def torch_sync(device):
@@ -1244,10 +1293,11 @@ def main() -> int:
         f"{auto['executor']}; bench gpu-full {bench_full['value']} vs "
         f"native {bench_native['value']} reads/s; "
         f"total {time.perf_counter() - t_all:.1f} s")
-    # main_ms: per launch at each row count the gpu-full step sends (edit_sc
-    # runs only in stage 2, whose wave dispatches are the phase-2 shape)
-    main_ms = {name: {str(r["rows"]): r["ms"] for r in main_shapes.get(
-        name, [])} or {"1024": kern[name]["ms"]} for name in REPLACES}
+    # main_ms: per launch at each row count the gpu-full step sends, and
+    # edit_sc's at each row count of the stage-2 waves
+    main_shapes.update(s2["shapes"])
+    main_ms = {name: {str(r["rows"]): r["ms"] for r in main_shapes[name]}
+               for name in REPLACES}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[name], "launches": launches[name],

@@ -13,40 +13,51 @@
 //   cm_one_side  replaces ops/align_device.py::one_side_scan_ref: one-sided
 //                band with a per-item width (align.cpp:219-252).
 //
-// Two layouts.
+// One layout, band-local.  A group of G lanes serves one item and keeps,
+// per anti-diagonal k, only a window of WP = G * NC slots (slot q = NC * g
+// + c of lane g holds the cell i = a_k + q, j = k - i), where a_k is
+//   edit_end, edit_sc: ceil((k - w) / 2) - 1  (band |i - j| <= w in slots
+//                                              1 .. w + 1; w + 2 slots)
+//   one_side:          ceil((k - w) / 2) - 1  (band 0 <= j - i <= wv, for
+//                                              every item's wv <= w, in
+//                                              slots 1 .. w/2 + 1; w/2 + 2)
+//   xdrop:             lb_k - 1               (live band [lb, ub] from slot
+//                                              1; the boundary cells (0, k),
+//                                              (k, 0) with k <= w lie in the
+//                                              window too; w + 2 slots)
+// and every cell outside the window holds POS / NEG (the window invariant:
+// its values can never differ from those, so nothing outside is stored).
+// band_layout picks G * NC >= the slots: G = 1 while they fit 8 cells (w <=
+// 6; one_side w <= 13), so at the default w = 3 every lane is its own item
+// and a diagonal needs no shuffle at all; G up to 32 for w up to 254.  The
+// block's s and t rows are staged once into shared memory with 16-byte
+// loads of its contiguous span.
 //
-// xdrop and edit_end are band-local (the section "Band-local kernels"
-// below).  A diagonal keeps only the window of w + 2 slots that can hold a
-// value other than NEG / POS: the band |i - j| <= w (edit_end), or the live
-// X-drop band [lb, ub] with one slot below it and the boundary cells of the
-// first w diagonals (xdrop).  G lanes of NC cells serve one item, G * NC >=
-// w + 2 (band_layout: G = 1 up to w = 6, so at the default w = 3 every lane
-// is its own item and a diagonal needs no shuffle at all; G up to 32 for
-// w up to 254).  The window start moves by 0 or 1 per diagonal, so the
-// neighbours are fixed slots after one predicated shift per diagonal, and
-// the block's s and t rows are staged once into shared memory with 16-byte
-// loads of its contiguous span.  Each item's loop ends at min(2I - 1, n + m)
-// or at X-drop's dead band; a warp leaves when all its items are done.
-//
-// edit_sc and one_side keep the first layout: one warp per item, lane l
-// holding cells i = 4l .. 4l+3 of the whole I = 128 extent, the i-1
-// neighbour of a lane's first cell by __shfl_up_sync, per-diagonal
-// maxima/argmaxima by full-warp shuffle reductions.
+// a_k moves by delta = 0 or 1 per diagonal.  After each diagonal the two
+// previous diagonals and the s / t codes are shifted by delta slots, so
+// that cell q always reads its (i - 1) neighbours at slot q - 1 and its (i)
+// neighbour at slot q, and one new code enters (s at the top when delta =
+// 1, t at slot 0 when delta = 0; both are read at the start of the
+// diagonal, before delta is known).  The first w diagonals, the only ones
+// with boundary cells, run a separate instance of the step.  In the edit
+// DPs and one_side delta alternates with the parity of k - w, the same for
+// every lane, so their loops take two diagonals per trip with the shifts
+// fixed; one_side anchors at the launch's bound w rather than at each
+// item's wv for that reason (an item's narrower band only masks more
+// slots).  Each item's loop ends at min(2I - 1, n + m) or at X-drop's dead
+// band; a warp leaves when all its items are done.
 //
 // What bounds them.  Not bytes (the whole B = 1024 input is 260 KB) nor the
 // card's ALU throughput (~0.3 M band cells at B = 1024), but the n + m
 // anti-diagonals of the longest item in a warp, one after the other, times
-// the cost of one diagonal for that warp.  In the warp-per-item layout that
-// cost is two neighbour shuffles and a 5-step shuffle reduction (two for
-// X-drop, one of them 64-bit) per diagonal, with ~97% of the lanes on
-// masked cells at w = 3.  In the band-local layout at G = 1 there is no
-// shuffle and no branch in a diagonal (the lanes of a warp are different
-// items, so every update is a select): a diagonal is ~130 (xdrop) or ~80
-// (edit_end) integer instructions, and a warp scheduler has 16 INT32 lanes,
-// so each takes two cycles to dispatch.  That dispatch time, not the ~12-op
-// dependent chain of a diagonal, is what the kernels now wait on; it does
-// not shrink with more items (B = 1024 fills 16 SMs, B = 8192 128), only
-// with fewer instructions per diagonal.
+// the instructions of one diagonal.  At G = 1 there is no shuffle and no
+// branch in a diagonal (the lanes of a warp are different items, so every
+// update is a select), and a warp scheduler has 16 INT32 lanes, so each
+// integer instruction takes two cycles to dispatch.  That dispatch time,
+// not the ~12-op dependent chain of a diagonal, is what the kernels wait
+// on; it does not shrink with more items (B = 1024 fills 16 SMs, B = 8192
+// 128), only with fewer instructions per diagonal: fewer slots, and fewer
+// instructions per slot (edit_sc's candidate key is the costliest).
 //
 // Parity.  Everything is int32, bit-equal to the reference (x64 is off
 // there): packed keys are composed in uint32 so that wrap-around matches
@@ -61,282 +72,22 @@
 namespace {
 
 constexpr int I = 128;   // DP extent: cells i = 0 .. I-1 of a diagonal
-constexpr int CPT = 4;   // cells per lane (warp-per-item layout)
-constexpr int WPB = 4;   // warps (items) per block (warp-per-item layout)
 constexpr int NEG = -10000000;
 constexpr int POS = 10000000;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr long long PK_MIN = -0x7fffffffffffffffLL - 1;
-
-__device__ __forceinline__ int warp_max(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ long long warp_max64(long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    long long u = __shfl_xor_sync(FULL, v, o);
-    v = u > v ? u : v;
-  }
-  return v;
-}
-
-// (value, low) packed so that a signed 64-bit max orders by value first.
-__device__ __forceinline__ long long pack(int value, int low) {
-  return (long long)value * 4294967296LL + (long long)low;
-}
-__device__ __forceinline__ int pk_value(long long p) { return (int)(p >> 32); }
-__device__ __forceinline__ int pk_low(long long p) {
-  return (int)(p & 0xffffffffLL);
-}
-
-// One warp's item: lengths, s[i-1] per cell, and the t row in shared memory.
-struct Pair {
-  int n, m, lane;
-  int sv[CPT];
-  const int8_t* tsh;
-};
-
-__device__ __forceinline__ void load_pair(Pair& p, const int8_t* s,
-                                          const int8_t* t, const int32_t* n,
-                                          const int32_t* m, int b, int L,
-                                          int8_t* tsh) {
-  p.lane = threadIdx.x & 31;
-  p.n = n[b];
-  p.m = m[b];
-  const int8_t* srow = s + (size_t)b * L;
-  const int8_t* trow = t + (size_t)b * L;
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    int i = CPT * p.lane + c;
-    int x = i - 1;  // rows are zero padded to I, as in the reference
-    p.sv[c] = (x >= 0 && x < L) ? (int)srow[x] : 0;
-    tsh[i] = i < L ? trow[i] : (int8_t)0;
-  }
-  __syncwarp();
-  p.tsh = tsh;
-}
-
-// Cell (i, j = k - i) compares s[i-1] with t[j-1]; bases >= 4 (N) always
-// mismatch.
-__device__ __forceinline__ int mismatch(const Pair& p, int c, int i, int k) {
-  int x = k - i - 1;
-  int tv = (x >= 0 && x < I) ? (int)p.tsh[x] : 0;
-  int sv = p.sv[c];
-  return (sv != tv) | (sv >= 4) | (tv >= 4);
-}
-
-// dm1[c] = d at cell i - 1.
-__device__ __forceinline__ void shift_up(const int (&d)[CPT],
-                                         int (&dm1)[CPT]) {
-  dm1[0] = __shfl_up_sync(FULL, d[CPT - 1], 1);
-#pragma unroll
-  for (int c = 1; c < CPT; ++c) dm1[c] = d[c - 1];
-}
-
-// Banded edit DP (|i - j| <= w) of diagonal k from diagonals k-2, k-1.
-__device__ __forceinline__ void edit_step(const Pair& p, int k, int w,
-                                          const int (&d2)[CPT],
-                                          const int (&d1)[CPT],
-                                          int (&dp)[CPT]) {
-  int d2m[CPT], d1m[CPT];
-  shift_up(d2, d2m);
-  shift_up(d1, d1m);
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    int i = CPT * p.lane + c, j = k - i;
-    int v = min(d2m[c] + mismatch(p, c, i, k), min(d1m[c] + 1, d1[c] + 1));
-    if (j == 0 && i <= w) v = i;
-    if (i == 0 && j <= w && j >= 0) v = j;
-    bool valid = i <= p.n && j >= 0 && j <= p.m && abs(i - j) <= w;
-    dp[c] = valid ? v : POS;
-  }
-}
-
-__device__ __forceinline__ void roll_diags(int (&d2)[CPT], int (&d1)[CPT],
-                                           const int (&dp)[CPT]) {
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    d2[c] = d1[c];
-    d1[c] = dp[c];
-  }
-}
-
-// AlignCandid preference key (pallas_align.py _edit_candidate_key): score
-// desc, ed asc, |indel| asc, j desc, i asc; 0 = no candidate.
-__device__ __forceinline__ int edit_key(int dp, int i, int k, int n, int m,
-                                        int w, int max_ed, int max_sclen) {
-  int j = k - i;
-  int sclen = m - j, indel = j - i, score = m - sclen - 2 * dp;
-  bool ok = dp <= max_ed && sclen >= 0 && sclen <= max_sclen &&
-            j >= m - max_sclen && j >= 0 && j <= m && i >= 0 && i <= n &&
-            abs(i - j) <= w;
-  if (!ok) return 0;
-  unsigned key = ((unsigned)(score + 512) << 21) |
-                 ((unsigned)(31 - dp) << 16) |
-                 ((unsigned)(15 - abs(indel)) << 12) | ((unsigned)j << 5) |
-                 (unsigned)(31 - min(i, 31));
-  return (int)key;
-}
-
-// Strict-better update with the diagonal's best key (first i on ties).
-__device__ __forceinline__ void edit_sc_take(const Pair& p, const int (&d)[CPT],
-                                             int k, int w, int max_ed,
-                                             int max_sclen, int& best_key,
-                                             int& best_i, int& best_j) {
-  long long pk = PK_MIN;
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    int i = CPT * p.lane + c;
-    long long v = pack(edit_key(d[c], i, k, p.n, p.m, w, max_ed, max_sclen),
-                       I - 1 - i);
-    pk = v > pk ? v : pk;
-  }
-  pk = warp_max64(pk);
-  int kmax = pk_value(pk);
-  if (kmax > best_key) {
-    int karg = I - 1 - pk_low(pk);
-    best_key = kmax;
-    best_i = karg;
-    best_j = k - karg;
-  }
-}
-
-__device__ __forceinline__ int floordiv2(int x) {
-  return x >= 0 ? x / 2 : -((1 - x) / 2);
-}
-
-// Replaces pallas_align.py::_edit_sc_kernel / edit_sc_scan_ref.
-// out [B, 4] = (ed, sclen, indel, score).
-__global__ void __launch_bounds__(WPB * 32)
-edit_sc_kernel(const int8_t* __restrict__ s, const int8_t* __restrict__ t,
-               const int32_t* __restrict__ n, const int32_t* __restrict__ m,
-               int32_t* __restrict__ out, int B, int L, int w, int max_ed,
-               int max_sc) {
-  __shared__ int8_t tsh[WPB][I];
-  int warp = threadIdx.x >> 5;
-  int b = blockIdx.x * WPB + warp;
-  if (b >= B) return;
-  Pair p;
-  load_pair(p, s, t, n, m, b, L, tsh[warp]);
-  int max_sclen = min(max_sc, p.m);
-  int d2[CPT], d1[CPT], dp[CPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    int i = CPT * p.lane + c;
-    d2[c] = i == 0 ? 0 : POS;                                        // k = 0
-    d1[c] = (i <= 1 && i <= p.n && (1 - i) <= p.m) ? 1 : POS;        // k = 1
-  }
-  int best_key = 0, best_i = 0, best_j = 0;
-  // the seed diagonals' cells are candidate sources too
-  edit_sc_take(p, d2, 0, w, max_ed, max_sclen, best_key, best_i, best_j);
-  edit_sc_take(p, d1, 1, w, max_ed, max_sclen, best_key, best_i, best_j);
-  int kend = min(2 * I - 1, p.n + p.m);
-  for (int k = 2; k <= kend; ++k) {
-    edit_step(p, k, w, d2, d1, dp);
-    edit_sc_take(p, dp, k, w, max_ed, max_sclen, best_key, best_i, best_j);
-    roll_diags(d2, d1, dp);
-  }
-  if (p.lane != 0) return;
-  int mm = p.m;
-  bool has = best_key > 0;
-  int sclen = has ? mm - best_j : max_sc + 1;
-  int indel = has ? best_j - best_i : w + 1;
-  int score_part = (best_key >> 21) - 512;
-  int ed = has ? floordiv2(mm - sclen - score_part) : max_ed + 1;
-  // oracle tail: if m <= max_ed, the candidate (m, 0, 0) competes
-  int tail_key = (int)(((unsigned)(512 - mm) << 21) |
-                       ((unsigned)(31 - mm) << 16) | (15u << 12) |
-                       ((unsigned)mm << 5) | 31u);
-  if (mm <= max_ed && tail_key > best_key) {
-    ed = mm;
-    sclen = 0;
-    indel = 0;
-  }
-  int32_t* o = out + (size_t)b * 4;
-  o[0] = ed;
-  o[1] = sclen;
-  o[2] = indel;
-  o[3] = mm - sclen - 2 * ed;
-}
-
-// Replaces align_device.py::one_side_scan_ref.  out [B] = dp[n][m].
-__global__ void __launch_bounds__(WPB * 32)
-one_side_kernel(const int8_t* __restrict__ s, const int8_t* __restrict__ t,
-                const int32_t* __restrict__ n, const int32_t* __restrict__ m,
-                const int32_t* __restrict__ wvp, int32_t* __restrict__ out,
-                int B, int L) {
-  __shared__ int8_t tsh[WPB][I];
-  int warp = threadIdx.x >> 5;
-  int b = blockIdx.x * WPB + warp;
-  if (b >= B) return;
-  Pair p;
-  load_pair(p, s, t, n, m, b, L, tsh[warp]);
-  int wv = wvp[b];
-  int top = min(wv, p.m);
-  int d2[CPT], d1[CPT], d2m[CPT], d1m[CPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    int i = CPT * p.lane + c;
-    d2[c] = i == 0 ? 0 : POS;                                   // (0, 0)
-    d1[c] = (i == 0 && wv >= 1 && p.m >= 1) ? 1 : POS;          // (0, 1)
-  }
-  int res = POS;
-  if (p.n == 0 && p.m == 0) res = 0;
-  if (p.n + p.m == 1 && p.n == 0 && wv >= 1 && p.m == 1) res = 1;
-  int kend = min(2 * I - 1, p.n + p.m);
-  for (int k = 2; k <= kend; ++k) {
-    shift_up(d2, d2m);
-    shift_up(d1, d1m);
-    int val = -1;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      int i = CPT * p.lane + c, j = k - i;
-      int v = min(d2m[c] + mismatch(p, c, i, k), min(d1m[c] + 1, d1[c] + 1));
-      if (i == 0 && j >= 0 && j <= top) v = j;
-      bool valid = i <= p.n && j >= i && j <= min(i + wv, p.m);
-      v = valid ? v : POS;
-      if (i == p.n) val = max(val, v);
-      d2[c] = d1[c];
-      d1[c] = v;
-    }
-    if (k == p.n + p.m) res = warp_max(val);  // dp[n][m] (read only here)
-  }
-  if (p.lane == 0) out[b] = res;
-}
-
-// ---------------------------------------------------------------------------
-// Band-local kernels: xdrop and edit_end
-// ---------------------------------------------------------------------------
-//
-// A group of G lanes serves one item and keeps, per anti-diagonal k, only a
-// window of WP = G * NC slots (slot q = NC * g + c of lane g holds the cell
-// i = a_k + q, j = k - i), where a_k is
-//   edit_end: ceil((k - w) / 2) - 1   (band cells |i - j| <= w in 1 .. w+1)
-//   xdrop:    lb_k - 1                (live band [lb, ub] from slot 1; the
-//                                      boundary cells (0, k), (k, 0) with
-//                                      k <= w lie in the window too)
-// and every cell outside the window holds POS / NEG (the window invariant:
-// its values can never differ from those, so nothing outside is stored).
-// a_k moves by delta = 0 or 1 per diagonal.  After each diagonal the two
-// previous diagonals and the s / t codes are shifted by delta slots, so
-// that cell q always reads its (i - 1) neighbours at slot q - 1 and its (i)
-// neighbour at slot q, and one new code enters (s at the top when delta =
-// 1, t at slot 0 when delta = 0; both are read at the start of the
-// diagonal, before delta is known).  The first w diagonals, the only ones
-// with boundary cells, run a separate instance of the step; edit_end's
-// delta alternates with the parity of k - w, so its loop takes two
-// diagonals per trip with the shifts fixed.
-
-constexpr int NT_BAND = 64;   // threads per block of the band-local kernels
+constexpr int NT_BAND = 64;   // threads per block
 constexpr int W_ANCHOR = 2 * I - 2;  // a wider band changes no cell's test
 
-// (G, NC) for band w (the Python twin is ops/_ext.py band_layout): one lane
-// per item while the w + 2 slots fit 8 cells, then 8 cells per lane.
-inline void band_layout(int w, int& g, int& nc) {
-  int slots = (w < W_ANCHOR ? w : W_ANCHOR) + 2;
+// Window slots of band w: w + 2, or w / 2 + 2 for the one-sided band.
+inline int band_slots(int w, bool one_sided) {
+  int wa = w < W_ANCHOR ? w : W_ANCHOR;
+  return (one_sided ? wa / 2 : wa) + 2;
+}
+
+// (G, NC) for a window of `slots` (the Python twin is ops/_ext.py
+// band_layout): one lane per item while the slots fit 8 cells, then 8
+// cells per lane.
+inline void band_layout(int slots, int& g, int& nc) {
   if (slots <= 8) {
     g = 1;
     nc = slots < 2 ? 2 : slots;
@@ -498,19 +249,179 @@ struct Window {
   }
 };
 
-// One item of the edit_end DP (one lane of its group of G).  Slot 0 of the
-// window (i = ceil((k - w) / 2) - 1) is never in band: it only carries the
-// previous diagonal's cell there for the shift, so a one-lane item does
-// not compute it.
-template <int G, int NC>
-struct EditEndItem {
+// Diagonals 2 .. kmax of an item whose window start moves with the parity
+// of k - wa (the edit DPs and one_side): the first w, the only ones with
+// boundary cells, one at a time; then delta alternates, the same for every
+// lane, so two diagonals per trip with the shifts fixed.
+template <class Item>
+__device__ __forceinline__ void sweep(Item& it, int w, int wa, int kmax) {
+  int k = 2;
+  for (; k <= kmax && k <= w; ++k)
+    it.template step<true>(k, ((k - wa) & 1) == 0);
+  if (((k - wa) & 1) == 0) {
+    for (; k < kmax; k += 2) {
+      it.template step<false>(k, true);
+      it.template step<false>(k + 1, false);
+    }
+  } else {
+    for (; k < kmax; k += 2) {
+      it.template step<false>(k, false);
+      it.template step<false>(k + 1, true);
+    }
+  }
+  if (k == kmax) it.template step<false>(k, ((k - wa) & 1) == 0);
+}
+
+// edit_end's candidate rule: the one cell on column m of each diagonal; ed
+// asc, |indel| asc, the smaller i (the earlier diagonal) on exact ties.
+// out [B, 2] = (ed, indel).
+struct EndCand {
+  static constexpr int NCOLS = 2;
+  int w, max_ed, best_key, best_ed, best_indel;
+
+  __device__ __forceinline__ void init(int, int, int w_, int max_ed_, int) {
+    w = w_;
+    max_ed = max_ed_;
+    best_key = 0;
+    best_ed = max_ed + 1;
+    best_indel = w + 1;
+  }
+
+  // Diagonal k's values N (POS off the band), slot c holding i = off + c.
+  template <int G, int NC>
+  __device__ __forceinline__ void take(const int (&N)[NC], int k, int off,
+                                       int mm) {
+    const int c_m = k - mm - off;  // the one cell on column m
+    int on_m = POS;
+#pragma unroll
+    for (int c = G == 1 ? 1 : 0; c < NC; ++c) on_m = c == c_m ? N[c] : on_m;
+    int ce = on_m <= max_ed ? max_ed - on_m : -1;
+    if constexpr (G > 1) ce = group_max<G>(ce);
+    // strict: the smaller i wins exact ties (no branch: lanes are items)
+    const int indel = mm - (k - mm);
+    const int key = ce * (w + 2) + (w + 1 - min(abs(indel), w + 1));
+    const bool better = (ce >= 0) & (key > best_key);
+    best_key = better ? key : best_key;
+    best_ed = better ? max_ed - ce : best_ed;
+    best_indel = better ? indel : best_indel;
+  }
+
+  __device__ __forceinline__ void write(int32_t* o, int) const {
+    o[0] = best_ed;
+    o[1] = best_indel;
+  }
+};
+
+// edit_sc's candidate rule: every in-band cell with dp <= max_ed and sclen
+// = m - j <= min(max_sc, m) is a soft-clip candidate, ranked by the
+// reference's packed int32 key (pallas_align.py _edit_candidate_key):
+// score desc, ed asc, |indel| asc, j desc, i asc.  The largest key wins,
+// the smallest i of a diagonal and the earlier diagonal on ties: at G = 1 a
+// strict-greater update over the slots in ascending i, diagonal after
+// diagonal, does both; a group first takes its diagonal's largest key and
+// then the smallest i at it, by two group maxima.  Keys <= 0 never win
+// (the running best starts at 0, as the reference's does).
+// out [B, 4] = (ed, sclen, indel, score).
+struct ScCand {
+  static constexpr int NCOLS = 4;
+  int w, max_ed, max_sc, jmin, best_key, best_i, best_j;
+
+  // composed in uint32 so that wrap-around matches the reference's int32
+  // shifts (score = m - sclen - 2 dp = j - 2 dp)
+  __device__ static __forceinline__ int key(int dp, int i, int j) {
+    return (int)(((unsigned)(j - 2 * dp + 512) << 21) |
+                 ((unsigned)(31 - dp) << 16) |
+                 ((unsigned)(15 - abs(j - i)) << 12) | ((unsigned)j << 5) |
+                 (unsigned)(31 - min(i, 31)));
+  }
+
+  __device__ __forceinline__ void offer(bool ok, int kc, int i, int j) {
+    const bool gt = ok & (kc > best_key);
+    best_key = gt ? kc : best_key;
+    best_i = gt ? i : best_i;
+    best_j = gt ? j : best_j;
+  }
+
+  __device__ __forceinline__ void init(int nn, int mm, int w_, int max_ed_,
+                                       int max_sc_) {
+    w = w_;
+    max_ed = max_ed_;
+    max_sc = max_sc_;
+    jmin = mm - min(max_sc, mm);  // sclen <= max_sclen
+    best_key = best_i = best_j = 0;
+    // the seed diagonals are candidate sources too: dp = 0 at (0, 0), 1 at
+    // (0, 1) and (1, 0) where those lie in the matrix (k = 0, then k = 1 in
+    // ascending i)
+    offer((0 <= max_ed) & (jmin <= 0), key(0, 0, 0), 0, 0);
+    offer((mm >= 1) & (1 <= max_ed) & (jmin <= 1) & (w >= 1), key(1, 0, 1),
+          0, 1);
+    offer((nn >= 1) & (1 <= max_ed) & (jmin <= 0) & (w >= 1), key(1, 1, 0),
+          1, 0);
+  }
+
+  template <int G, int NC>
+  __device__ __forceinline__ void take(const int (&N)[NC], int k, int off,
+                                       int) {
+    int kmax = 0, imax = 0;
+#pragma unroll
+    for (int c = G == 1 ? 1 : 0; c < NC; ++c) {
+      const int i = off + c, j = k - i;
+      // N is POS off the band, so these two tests leave only band cells
+      const bool ok = (N[c] <= max_ed) & (j >= jmin);
+      const int kc = key(N[c], i, j);
+      if constexpr (G == 1) {
+        offer(ok, kc, i, j);
+      } else {
+        const bool gt = ok & (kc > kmax);
+        kmax = gt ? kc : kmax;
+        imax = gt ? i : imax;
+      }
+    }
+    if constexpr (G > 1) {
+      const int top = group_max<G>(kmax);
+      const int i = I - 1 - group_max<G>(kmax == top ? I - 1 - imax : -1);
+      offer(top > 0, top, i, k - i);
+    }
+  }
+
+  __device__ __forceinline__ void write(int32_t* o, int mm) const {
+    const bool has = best_key > 0;
+    int sclen = has ? mm - best_j : max_sc + 1;
+    int indel = has ? best_j - best_i : w + 1;
+    // floor((m - sclen - score) / 2): >> is arithmetic on int
+    int ed = has ? (mm - sclen - ((best_key >> 21) - 512)) >> 1 : max_ed + 1;
+    // oracle tail: if m <= max_ed, the candidate (m, 0, 0) competes
+    int tail_key = (int)(((unsigned)(512 - mm) << 21) |
+                         ((unsigned)(31 - mm) << 16) | (15u << 12) |
+                         ((unsigned)mm << 5) | 31u);
+    if (mm <= max_ed && tail_key > best_key) {
+      ed = mm;
+      sclen = 0;
+      indel = 0;
+    }
+    o[0] = ed;
+    o[1] = sclen;
+    o[2] = indel;
+    o[3] = mm - sclen - 2 * ed;
+  }
+};
+
+// One item of the banded edit DP (one lane of its group of G), with the
+// candidate rule Cand.  Slot 0 of the window (i = ceil((k - w) / 2) - 1) is
+// never in band: it only carries the previous diagonal's cell there for the
+// shift, so a one-lane item does not compute it.
+template <int G, int NC, class Cand>
+struct EditItem {
   Window<G, NC> win;
   BandRows rows;
-  int g, q0, nn, mm, w, max_ed, a;
-  int best_key, best_ed, best_indel;
+  int g, q0, nn, mm, w, a;
+  // last, and set up after the window: in that order nvcc allocates
+  // edit_end's loop as tightly as a separate edit_end item does (other
+  // orders cost it one register move per two diagonals)
+  Cand cand;
 
   // Diagonal k (BND: k <= w, where the boundary cells (k, 0), (0, k) lie),
-  // then the re-anchor by delta for k + 1.
+  // its candidates, then the re-anchor by delta for k + 1.
   template <bool BND>
   __device__ __forceinline__ void step(int k, bool delta) {
     constexpr int WP = G * NC;
@@ -522,9 +433,7 @@ struct EditEndItem {
     const int off = a + q0;
     const int c_lo = max(max(0, k - mm), (k - w + 1) >> 1) - off;
     const int c_hi = min(min(nn, I - 1), min(k, (k + w) >> 1)) - off;
-    const int c_m = k - mm - off;  // the one cell on column m
     int N[NC];
-    int on_m = POS;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       if (G == 1 && c == 0) {
@@ -540,32 +449,22 @@ struct EditEndItem {
         if (p == 0 && j >= 0 && j <= w) v = j;
       }
       N[c] = (c >= c_lo) & (c <= c_hi) ? v : POS;
-      on_m = c == c_m ? N[c] : on_m;
     }
-    int ce = on_m <= max_ed ? max_ed - on_m : -1;
-    if constexpr (G > 1) ce = group_max<G>(ce);
-    // strict: the smaller i wins exact ties (no branch: lanes are items)
-    const int indel = mm - (k - mm);
-    const int key = ce * (w + 2) + (w + 1 - min(abs(indel), w + 1));
-    const bool better = (ce >= 0) & (key > best_key);
-    best_key = better ? key : best_key;
-    best_ed = better ? max_ed - ce : best_ed;
-    best_indel = better ? indel : best_indel;
+    cand.template take<G, NC>(N, k, off, mm);
     win.advance(g, N, delta, POS, s_new, t_new);
     a += delta;
   }
 };
 
-// Replaces align_device.py::edit_end_scan_ref.  out [B, 2] = (ed, indel).
-template <int G, int NC>
-__global__ void __launch_bounds__(NT_BAND)
-edit_end_kernel(const int8_t* __restrict__ s, const int8_t* __restrict__ t,
-                const int32_t* __restrict__ n, const int32_t* __restrict__ m,
-                int32_t* __restrict__ out, int B, int L, int w, int max_ed) {
+template <int G, int NC, class Cand>
+__device__ __forceinline__ void edit_item(
+    const int8_t* __restrict__ s, const int8_t* __restrict__ t,
+    const int32_t* __restrict__ n, const int32_t* __restrict__ m,
+    int32_t* __restrict__ out, int B, int L, int w, int max_ed, int max_sc) {
   constexpr int NI = NT_BAND / G;
   __shared__ __align__(16) int8_t ssh[Staging<G * NC, NI>::bytes];
   __shared__ __align__(16) int8_t tsh[Staging<G * NC, NI>::bytes];
-  EditEndItem<G, NC> it;
+  EditItem<G, NC, Cand> it;
   it.rows = stage_block<G, G * NC>(s, t, B, L, ssh, tsh);
   it.g = threadIdx.x % G;
   it.q0 = it.g * NC;
@@ -574,7 +473,6 @@ edit_end_kernel(const int8_t* __restrict__ s, const int8_t* __restrict__ t,
   it.nn = real ? n[b] : 0;
   it.mm = real ? m[b] : 0;
   it.w = w;
-  it.max_ed = max_ed;
   const int wa = min(w, W_ANCHOR);
   it.a = ((2 - wa + 1) >> 1) - 1;  // ceil((k - w) / 2) - 1 at k = 2
 #pragma unroll
@@ -585,31 +483,120 @@ edit_end_kernel(const int8_t* __restrict__ s, const int8_t* __restrict__ t,
         (p >= 0 && p <= 1 && p <= it.nn && 1 - p <= it.mm) ? 1 : POS;  // k = 1
   }
   it.win.load_codes(it.q0, it.a, 2, it.rows);
-  it.best_key = 0;
-  it.best_ed = max_ed + 1;
-  it.best_indel = w + 1;
+  it.cand.init(it.nn, it.mm, w, max_ed, max_sc);
   // past k = n + m no cell is in band; the warp runs to its longest item
-  const int kmax = __reduce_max_sync(FULL, min(2 * I - 1, it.nn + it.mm));
-  int k = 2;
-  for (; k <= kmax && k <= w; ++k)
-    it.template step<true>(k, ((k - wa) & 1) == 0);
-  // delta alternates from here on: two diagonals per trip, no predicate
-  if (((k - wa) & 1) == 0) {
-    for (; k < kmax; k += 2) {
-      it.template step<false>(k, true);
-      it.template step<false>(k + 1, false);
+  sweep(it, w, wa, __reduce_max_sync(FULL, min(2 * I - 1, it.nn + it.mm)));
+  if (real && it.g == 0) it.cand.write(out + (size_t)b * Cand::NCOLS, it.mm);
+}
+
+// Replaces align_device.py::edit_end_scan_ref.  out [B, 2] = (ed, indel).
+template <int G, int NC>
+__global__ void __launch_bounds__(NT_BAND)
+edit_end_kernel(const int8_t* __restrict__ s, const int8_t* __restrict__ t,
+                const int32_t* __restrict__ n, const int32_t* __restrict__ m,
+                int32_t* __restrict__ out, int B, int L, int w, int max_ed) {
+  edit_item<G, NC, EndCand>(s, t, n, m, out, B, L, w, max_ed, 0);
+}
+
+// Replaces pallas_align.py::_edit_sc_kernel / edit_sc_scan_ref.
+// out [B, 4] = (ed, sclen, indel, score).
+template <int G, int NC>
+__global__ void __launch_bounds__(NT_BAND)
+edit_sc_kernel(const int8_t* __restrict__ s, const int8_t* __restrict__ t,
+               const int32_t* __restrict__ n, const int32_t* __restrict__ m,
+               int32_t* __restrict__ out, int B, int L, int w, int max_ed,
+               int max_sc) {
+  edit_item<G, NC, ScCand>(s, t, n, m, out, B, L, w, max_ed, max_sc);
+}
+
+// One item of the one_side DP (one lane of its group of G): band 0 <= j - i
+// <= wv, boundary dp[0][j] = j for j <= min(wv, m).  The window is anchored
+// at the launch's bound w, so slot 0 is never in band and a one-lane item
+// does not compute it.  The result is one cell, dp[n][m], kept by a select
+// on diagonal n + m (POS when it is out of band).
+template <int G, int NC>
+struct OneSideItem {
+  Window<G, NC> win;
+  BandRows rows;
+  int g, q0, nn, mm, wv, top, a, res;
+
+  // Diagonal k (BND: k <= w, where the boundary cells (0, k) lie), then the
+  // re-anchor by delta for k + 1.
+  template <bool BND>
+  __device__ __forceinline__ void step(int k, bool delta) {
+    constexpr int WP = G * NC;
+    const int s_new = rows.code(true, a + WP - 1);
+    const int t_new = rows.code(false, k - a);
+    int pm0, ppm0;
+    win.below(g, POS, pm0, ppm0);
+    // band cells: 0 <= j - i <= wv, i <= n, j <= m, inside the extent
+    const int off = a + q0;
+    const int c_lo = max(max(0, k - mm), (k - wv + 1) >> 1) - off;
+    const int c_hi = min(min(nn, I - 1), k >> 1) - off;
+    const int c_n = k == nn + mm ? nn - off : -1;  // dp[n][m], read only here
+    int N[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (G == 1 && c == 0) {
+        N[0] = POS;
+        continue;
+      }
+      int pm = c > 0 ? win.P[c - 1] : pm0;
+      int ppm = c > 0 ? win.PP[c - 1] : ppm0;
+      int v = min(ppm + (win.S[c] != win.T[c]), min(pm, win.P[c]) + 1);
+      if constexpr (BND) {
+        if ((off + c == 0) & (k <= top)) v = k;
+      }
+      N[c] = (c >= c_lo) & (c <= c_hi) ? v : POS;
+      res = c == c_n ? N[c] : res;
     }
-  } else {
-    for (; k < kmax; k += 2) {
-      it.template step<false>(k, false);
-      it.template step<false>(k + 1, true);
-    }
+    win.advance(g, N, delta, POS, s_new, t_new);
+    a += delta;
   }
-  if (k == kmax) it.template step<false>(k, ((k - wa) & 1) == 0);
-  if (real && it.g == 0) {
-    out[(size_t)b * 2] = it.best_ed;
-    out[(size_t)b * 2 + 1] = it.best_indel;
+};
+
+// Replaces align_device.py::one_side_scan_ref.  out [B] = dp[n][m].  Every
+// row's wv must lie in [0, w]: the window is sized from w, so a row outside
+// it stops the kernel with a trap (the launch fails at the next
+// synchronisation) instead of answering from a window too small.
+template <int G, int NC>
+__global__ void __launch_bounds__(NT_BAND)
+one_side_kernel(const int8_t* __restrict__ s, const int8_t* __restrict__ t,
+                const int32_t* __restrict__ n, const int32_t* __restrict__ m,
+                const int32_t* __restrict__ wvp, int32_t* __restrict__ out,
+                int B, int L, int w) {
+  constexpr int NI = NT_BAND / G;
+  __shared__ __align__(16) int8_t ssh[Staging<G * NC, NI>::bytes];
+  __shared__ __align__(16) int8_t tsh[Staging<G * NC, NI>::bytes];
+  OneSideItem<G, NC> it;
+  it.rows = stage_block<G, G * NC>(s, t, B, L, ssh, tsh);
+  it.g = threadIdx.x % G;
+  it.q0 = it.g * NC;
+  const int b = blockIdx.x * NI + threadIdx.x / G;
+  const bool real = b < B;
+  it.nn = real ? n[b] : 0;
+  it.mm = real ? m[b] : 0;
+  it.wv = real ? wvp[b] : 0;
+  if (it.wv < 0 || it.wv > w) __trap();
+  it.top = min(it.wv, it.mm);
+  const int wa = min(w, W_ANCHOR);
+  it.a = ((2 - wa + 1) >> 1) - 1;  // ceil((k - w) / 2) - 1 at k = 2
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    int p = it.a + it.q0 + c;
+    it.win.PP[c] = p == 0 ? 0 : POS;                                // (0, 0)
+    it.win.P[c] = (p == 0 && it.wv >= 1 && it.mm >= 1) ? 1 : POS;   // (0, 1)
   }
+  it.win.load_codes(it.q0, it.a, 2, it.rows);
+  it.res = POS;
+  if (it.nn == 0 && it.mm == 0) it.res = 0;
+  if (it.nn == 0 && it.mm == 1 && it.wv >= 1) it.res = 1;
+  sweep(it, w, wa, __reduce_max_sync(FULL, min(2 * I - 1, it.nn + it.mm)));
+  // one lane of the group holds dp[n][m]; the others hold POS or the same
+  // special case
+  int res = it.res;
+  if constexpr (G > 1) res = -group_max<G>(-res);
+  if (real && it.g == 0) out[b] = res;
 }
 
 // One item of the X-drop DP (one lane of its group of G).  Outside the
@@ -750,53 +737,40 @@ xdrop_kernel(const int8_t* __restrict__ s, const int8_t* __restrict__ t,
   }
 }
 
-template <int G, int NC>
-int launch_xdrop(const void* s, const void* t, const void* n, const void* m,
-                 void* out, int B, int L, int w, int mat, int mis, int ind,
-                 int xd, cudaStream_t stream) {
-  constexpr int NI = NT_BAND / G;
-  xdrop_kernel<G, NC><<<(B + NI - 1) / NI, NT_BAND, 0, stream>>>(
-      (const int8_t*)s, (const int8_t*)t, (const int32_t*)n,
-      (const int32_t*)m, (int32_t*)out, B, L, w, mat, mis, ind, xd);
-  return (int)cudaGetLastError();
-}
+// KERNEL<G, NC> over B items, NT_BAND / G items per block; the launch's
+// cudaGetLastError().
+#define CM_LAUNCH(KERNEL, G, NC, B, stream, ...)                      \
+  (KERNEL<G, NC><<<((B) + NT_BAND / (G) - 1) / (NT_BAND / (G)), NT_BAND, \
+                   0, stream>>>(__VA_ARGS__),                         \
+   (int)cudaGetLastError())
 
-template <int G, int NC>
-int launch_edit_end(const void* s, const void* t, const void* n,
-                    const void* m, void* out, int B, int L, int w,
-                    int max_ed, cudaStream_t stream) {
-  constexpr int NI = NT_BAND / G;
-  edit_end_kernel<G, NC><<<(B + NI - 1) / NI, NT_BAND, 0, stream>>>(
-      (const int8_t*)s, (const int8_t*)t, (const int32_t*)n,
-      (const int32_t*)m, (int32_t*)out, B, L, w, max_ed);
-  return (int)cudaGetLastError();
-}
-
-// Call LAUNCH<G, NC>(args...) for the layout of band w.
-#define CM_BAND_DISPATCH(LAUNCH, w, ...)                        \
-  do {                                                          \
-    int g_, nc_;                                                \
-    band_layout(w, g_, nc_);                                    \
-    if (g_ == 1) switch (nc_) {                                 \
-        case 2: return LAUNCH<1, 2>(__VA_ARGS__);               \
-        case 3: return LAUNCH<1, 3>(__VA_ARGS__);               \
-        case 4: return LAUNCH<1, 4>(__VA_ARGS__);               \
-        case 5: return LAUNCH<1, 5>(__VA_ARGS__);               \
-        case 6: return LAUNCH<1, 6>(__VA_ARGS__);               \
-        case 7: return LAUNCH<1, 7>(__VA_ARGS__);               \
-        case 8: return LAUNCH<1, 8>(__VA_ARGS__);               \
-      }                                                         \
-    switch (g_) {                                               \
-      case 2: return LAUNCH<2, 8>(__VA_ARGS__);                 \
-      case 4: return LAUNCH<4, 8>(__VA_ARGS__);                 \
-      case 8: return LAUNCH<8, 8>(__VA_ARGS__);                 \
-      case 16: return LAUNCH<16, 8>(__VA_ARGS__);               \
-      case 32: return LAUNCH<32, 8>(__VA_ARGS__);               \
-    }                                                           \
-    return (int)cudaErrorInvalidValue;                          \
+// Return CM_LAUNCH(KERNEL, G, NC, ...) for the layout of `slots`.
+#define CM_BAND_DISPATCH(KERNEL, slots, ...)                        \
+  do {                                                              \
+    int g_, nc_;                                                    \
+    band_layout(slots, g_, nc_);                                    \
+    if (g_ == 1) switch (nc_) {                                     \
+        case 2: return CM_LAUNCH(KERNEL, 1, 2, __VA_ARGS__);        \
+        case 3: return CM_LAUNCH(KERNEL, 1, 3, __VA_ARGS__);        \
+        case 4: return CM_LAUNCH(KERNEL, 1, 4, __VA_ARGS__);        \
+        case 5: return CM_LAUNCH(KERNEL, 1, 5, __VA_ARGS__);        \
+        case 6: return CM_LAUNCH(KERNEL, 1, 6, __VA_ARGS__);        \
+        case 7: return CM_LAUNCH(KERNEL, 1, 7, __VA_ARGS__);        \
+        case 8: return CM_LAUNCH(KERNEL, 1, 8, __VA_ARGS__);        \
+      }                                                             \
+    switch (g_) {                                                   \
+      case 2: return CM_LAUNCH(KERNEL, 2, 8, __VA_ARGS__);          \
+      case 4: return CM_LAUNCH(KERNEL, 4, 8, __VA_ARGS__);          \
+      case 8: return CM_LAUNCH(KERNEL, 8, 8, __VA_ARGS__);          \
+      case 16: return CM_LAUNCH(KERNEL, 16, 8, __VA_ARGS__);        \
+      case 32: return CM_LAUNCH(KERNEL, 32, 8, __VA_ARGS__);        \
+    }                                                               \
+    return (int)cudaErrorInvalidValue;                              \
   } while (0)
 
-inline dim3 grid_for(int B) { return dim3((unsigned)((B + WPB - 1) / WPB)); }
+// The pointer arguments every kernel starts with.
+#define CM_ROWS                                                      \
+  (const int8_t*)s, (const int8_t*)t, (const int32_t*)n, (const int32_t*)m
 
 }  // namespace
 
@@ -809,34 +783,36 @@ int cm_xdrop(const void* s, const void* t, const void* n, const void* m,
              const void* wv, void* out, int B, int L, int w, int mat, int mis,
              int ind, int xd, void* stream) {
   (void)wv;
-  CM_BAND_DISPATCH(launch_xdrop, w, s, t, n, m, out, B, L, w, mat, mis, ind,
-                   xd, (cudaStream_t)stream);
+  CM_BAND_DISPATCH(xdrop_kernel, band_slots(w, false), B,
+                   (cudaStream_t)stream, CM_ROWS, (int32_t*)out, B, L, w, mat,
+                   mis, ind, xd);
 }
 
 int cm_edit_sc(const void* s, const void* t, const void* n, const void* m,
                const void* wv, void* out, int B, int L, int w, int max_ed,
                int max_sc, void* stream) {
   (void)wv;
-  edit_sc_kernel<<<grid_for(B), WPB * 32, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)s, (const int8_t*)t, (const int32_t*)n,
-      (const int32_t*)m, (int32_t*)out, B, L, w, max_ed, max_sc);
-  return (int)cudaGetLastError();
+  CM_BAND_DISPATCH(edit_sc_kernel, band_slots(w, false), B,
+                   (cudaStream_t)stream, CM_ROWS, (int32_t*)out, B, L, w,
+                   max_ed, max_sc);
 }
 
 int cm_edit_end(const void* s, const void* t, const void* n, const void* m,
                 const void* wv, void* out, int B, int L, int w, int max_ed,
                 void* stream) {
   (void)wv;
-  CM_BAND_DISPATCH(launch_edit_end, w, s, t, n, m, out, B, L, w, max_ed,
-                   (cudaStream_t)stream);
+  CM_BAND_DISPATCH(edit_end_kernel, band_slots(w, false), B,
+                   (cudaStream_t)stream, CM_ROWS, (int32_t*)out, B, L, w,
+                   max_ed);
 }
 
+// w: a bound on every row's wv (the window is sized from it).
 int cm_one_side(const void* s, const void* t, const void* n, const void* m,
-                const void* wv, void* out, int B, int L, void* stream) {
-  one_side_kernel<<<grid_for(B), WPB * 32, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)s, (const int8_t*)t, (const int32_t*)n,
-      (const int32_t*)m, (const int32_t*)wv, (int32_t*)out, B, L);
-  return (int)cudaGetLastError();
+                const void* wv, void* out, int B, int L, int w,
+                void* stream) {
+  CM_BAND_DISPATCH(one_side_kernel, band_slots(w, true), B,
+                   (cudaStream_t)stream, CM_ROWS, (const int32_t*)wv,
+                   (int32_t*)out, B, L, w);
 }
 
 }  // extern "C"

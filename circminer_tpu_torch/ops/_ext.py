@@ -35,18 +35,21 @@ KERNELS = {
     "xdrop": ("cm_xdrop", 5),        # w, mat, mis, ind, xd
     "edit_sc": ("cm_edit_sc", 3),    # w, max_ed, max_sc
     "edit_end": ("cm_edit_end", 2),  # w, max_ed
-    "one_side": ("cm_one_side", 0),  # per-item band width comes in wv
+    "one_side": ("cm_one_side", 1),  # w, a bound on every row's wv
 }
 I_KERNEL = 128  # DP extent of every kernel: cells i = 0 .. 127 of a diagonal
 
 
-def band_layout(w: int):
-    """(G, NC) of the band-local ``xdrop`` and ``edit_end`` kernels at band
-    w: G lanes of NC cells per item hold the w + 2 window slots of a
-    diagonal (``band_layout`` in csrc/align_kernels.cu makes the same
-    choice).  One lane per item up to w = 6, then 8 cells per lane; a band
-    wider than 2I - 2 changes no cell's test and is held at that."""
-    slots = min(w, 2 * I_KERNEL - 2) + 2
+def band_layout(w: int, one_sided: bool = False):
+    """(G, NC) of the band-local kernels at band w: G lanes of NC cells per
+    item hold the window slots of a diagonal, w + 2 (xdrop, edit_sc,
+    edit_end) or w // 2 + 2 for ``one_sided`` (one_side, whose rows' wv
+    are all <= w); ``band_layout`` in csrc/align_kernels.cu makes the same
+    choice.  One lane per item while the slots fit 8 cells, then 8 cells
+    per lane; a band wider than 2I - 2 changes no cell's test and is held
+    at that."""
+    wa = min(w, 2 * I_KERNEL - 2)
+    slots = (wa // 2 if one_sided else wa) + 2
     if slots <= 8:
         return 1, max(slots, 2)
     g = 2

@@ -151,11 +151,16 @@ def edit_end_batch(s, t, n, m, *, w: int, max_ed: int, I: int = 128):
     return out[:, 0], out[:, 1]
 
 
-def one_side_batch(s, t, n, m, wv, *, I: int = 128):
-    """dp[n][m] int32 [B]; CUDA tensors run the ``one_side`` kernel."""
+def one_side_batch(s, t, n, m, wv, *, w: int, I: int = 128):
+    """dp[n][m] int32 [B]; CUDA tensors run the ``one_side`` kernel.  w
+    bounds every row's band: wv must lie in [0, w] (the kernel sizes its
+    window from w and traps on a row outside it; a CPU tensor raises)."""
     if not s.is_cuda:
+        if wv.numel() and not 0 <= int(wv.min()) <= int(wv.max()) <= w:
+            raise ValueError(f"one_side: wv must lie in [0, {w}], got "
+                             f"[{int(wv.min())}, {int(wv.max())}]")
         return one_side_scan(s, t, n, m, wv, I=I)
-    return _ext.launch("one_side", s, t, n, m, wv, 1, I, ())[:, 0]
+    return _ext.launch("one_side", s, t, n, m, wv, 1, I, (w,))[:, 0]
 
 
 # --------------------------------------------------------------------------
@@ -193,7 +198,7 @@ def wave_all_batch(s, t, n, m, wv, *, w, max_ed, max_sc, mat, mis, ind, xd,
             xdrop_batch(s, t, n, m, w=w, mat=mat, mis=mis, ind=ind, xd=xd,
                         I=I),
             edit_end_batch(s, t, n, m, w=w, max_ed=max_ed, I=I),
-            one_side_batch(s, t, n, m, wv, I=I))
+            one_side_batch(s, t, n, m, wv, w=w, I=I))
 
 
 # --------------------------------------------------------------------------
@@ -308,8 +313,10 @@ class DeviceAlignService:
         if kind in ("drop_sc_r", "drop_sc_l"):
             return True
         if kind == "one_side":
+            # the one_side kernel's window is sized from w: a wider band
+            # goes to the host aligner
             ws = req[3]
-            return ws >= 0 and len(s) > ws and len(t) > ws
+            return 0 <= ws <= w and len(s) > ws and len(t) > ws
         raise ValueError(f"unknown align request kind {kind!r}")
 
     def _chunks(self, idxs):
@@ -323,5 +330,5 @@ class DeviceAlignService:
         o = np.ones(self.I - 1, np.int8)
         reqs = [(k, o, o) for k in ("edit_sc_r", "edit_sc_l", "drop_sc_r",
                                     "drop_sc_l", "end_r", "end_l")]
-        reqs.append(("one_side", o, o, 1))
+        reqs.append(("one_side", o, o, min(1, self.cfg.band_width)))
         self.solve_batch(reqs)

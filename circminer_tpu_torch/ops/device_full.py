@@ -169,13 +169,15 @@ def _tiny_global(s, t, n, m, NMAX, MMAX):
     return _last(row, torch.clamp(m, 0, MMAX))
 
 
-def _one_side_pool(s, t, n, m, wv, I):
+def _one_side_pool(s, t, n, m, wv, I, *, w):
     """Exact global_one_side_banded_alignment over a packed pool, for every
     shape the oracle covers (align.py:108-125): n > w -> the ``one_side``
-    kernel, n <= w -> the full tiny DP (w <= 3, m = n + w <= n + 3)."""
+    kernel, n <= w -> the full tiny DP (w <= 3, m = n + w <= n + 3).  Every
+    row's wv must lie in [0, w], the kernel's bound."""
     n, m = n.to(_i32).contiguous(), m.to(_i32).contiguous()
     wv = wv.to(_i32).contiguous()
-    banded = one_side_batch(s.contiguous(), t.contiguous(), n, m, wv, I=I)
+    banded = one_side_batch(s.contiguous(), t.contiguous(), n, m, wv, w=w,
+                            I=I)
     TN, TM = 4, 8
     tiny = _tiny_global(s[:, :TN], t[:, :TM], torch.clamp(n, max=TN),
                         torch.clamp(m, max=TM), TN, TM)
@@ -652,7 +654,11 @@ def _phase1(seqs, lens, hh, rp, qp, cl, sc10, cn, inc, mr_in,
     p_row = os_inv // (KB1 * NLm1)                 # row in [0, 4B)
     p_qs, p_qlen = flat_g(gqs), flat_g(gqlen)
     p_rs0, p_rlen = flat_g(grs0), flat_g(grlen_eff)
-    p_w, p_swap = flat_g(gw), flat_g(gswap)
+    # pool rows past os_n gather an arbitrary slot (_compact), whose |gdiff|
+    # the band does not bound: the g_need mask keeps every gathered width
+    # in one_side's bound [0, band]; _scatter_pool drops those rows
+    p_w = flat_g(torch.where(g_need, gw, 0))
+    p_swap = flat_g(gswap)
     io = torch.arange(I - 1, dtype=_i32, device=dev)
     qidx = p_row[:, None] * L + p_qs[:, None] + io[None, :]
     q_win = torch.where(io[None, :] < p_qlen[:, None],
@@ -662,7 +668,7 @@ def _phase1(seqs, lens, hh, rp, qp, cl, sc10, cn, inc, mr_in,
     t_buf = torch.where(p_swap[:, None], q_win, r_win)
     n_os = torch.where(p_swap, p_rlen, p_qlen)
     m_os = torch.where(p_swap, p_qlen, p_rlen)
-    os_res_pool = _one_side_pool(s_buf, t_buf, n_os, m_os, p_w, I)
+    os_res_pool = _one_side_pool(s_buf, t_buf, n_os, m_os, p_w, I, w=band)
     gap_res = _scatter_pool(os_res_pool, os_inv, os_n,
                             B * 4 * KB1 * NLm1).reshape(B, 4, KB1, NLm1)
     contrib = torch.where(g_need, gap_res, 0)

@@ -145,7 +145,8 @@ def test_cpu_wrappers_run_the_plain_versions():
         tpa.edit_sc_scan(s, t, n, m, **ED_KW))
     _eq(tad.edit_end_batch(s, t, n, m, w=W, max_ed=MAX_ED),
         tad.edit_end_scan(s, t, n, m, w=W, max_ed=MAX_ED))
-    _eq(tad.one_side_batch(s, t, n, m, wv), tad.one_side_scan(s, t, n, m, wv))
+    _eq(tad.one_side_batch(s, t, n, m, wv, w=W),
+        tad.one_side_scan(s, t, n, m, wv))
     assert _ext.LAUNCHES == before
 
 
@@ -189,6 +190,24 @@ def test_service_matches_jax_service_on_mixed_wave():
     assert len(kinds) == 7
 
 
+@pytest.mark.parametrize("band", [0, 1])
+def test_service_sends_one_side_past_the_band_to_the_host(band):
+    """The one_side kernel's window is sized from the band: the service warms
+    up inside it at every -w (0 included), and a one_side request wider than
+    the band goes to the host aligner with the same answer as JAX's."""
+    cfg = Config(kmer=20, max_read_len=120, band_width=band)
+    port = tad.DeviceAlignService(port_config(cfg), device="cpu")
+    port.warm()
+    assert (port.n_dispatch, port.n_host) == (1, 0)
+    ref = jad.DeviceAlignService(cfg)
+    reqs = _mixed_wave(np.random.default_rng(20 + band))
+    assert port.solve_batch(reqs) == ref.solve_batch(reqs)
+    wide = sum(r[0] == "one_side" and r[3] > band and ref._in_regime(r)
+               for r in reqs)
+    assert wide > 0
+    assert port.n_host == ref.n_host + wide
+
+
 BATCHES = (1, 33, 1024, 8192)
 
 
@@ -212,7 +231,7 @@ def test_kernels_match_plain_on_card(cuda_device, w):
              tpa.edit_sc_scan(s, t, n, m, **ed_kw)),
             (tad.edit_end_batch(s, t, n, m, w=w, max_ed=MAX_ED),
              tad.edit_end_scan(s, t, n, m, w=w, max_ed=MAX_ED)),
-            (tad.one_side_batch(s, t, n, m, wv),
+            (tad.one_side_batch(s, t, n, m, wv, w=w),
              tad.one_side_scan(s, t, n, m, wv)),
         ]
         torch.cuda.synchronize()
@@ -224,3 +243,36 @@ def test_kernels_match_plain_on_card(cuda_device, w):
             _eq(got, want)
     assert all(v == len(BATCHES) for v in _ext.LAUNCHES.values()), \
         _ext.LAUNCHES
+
+
+_TRAP_SCRIPT = """
+import numpy as np, torch
+from chip_smoke import kernel_inputs
+from circminer_tpu_torch.ops import align_device as ad
+dev = torch.device("cuda")
+s, t, n, m, wv = (torch.from_numpy(x).to(dev) for x in
+                  kernel_inputs(np.random.default_rng(5), 256, 3))
+ad.one_side_batch(s, t, n, m, wv, w=3)
+torch.cuda.synchronize()
+print("in-bound launch ok", flush=True)
+wv[100] = 4
+out = ad.one_side_batch(s, t, n, m, wv, w=3)
+torch.cuda.synchronize()
+print("answered", out[:4].tolist(), flush=True)
+"""
+
+
+@pytest.mark.cuda
+def test_one_side_traps_on_a_row_past_its_bound(cuda_device):
+    """A row whose wv exceeds the launch's bound w stops the one_side kernel
+    (a trap, which spoils the CUDA context of its process: hence the
+    subprocess) rather than return a value that could pass for a result."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, "-c", _TRAP_SCRIPT], cwd=root,
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert "in-bound launch ok" in res.stdout, res.stderr[-2000:]
+    assert res.returncode != 0 and "answered" not in res.stdout, res.stdout

@@ -178,7 +178,7 @@ def test_tiny_global_and_one_side_pool_match_jax():
                              torch.clamp(tm, max=8), 4, 8),
           jfull._tiny_global(js[:, :4], jt[:, :8], jnp.minimum(jn, 4),
                              jnp.minimum(jm, 8), 4, 8), "tiny_global")
-    _same(tfull._one_side_pool(ts, tt, tn, tm, tw, 128),
+    _same(tfull._one_side_pool(ts, tt, tn, tm, tw, 128, w=W),
           jfull._one_side_pool(js, jt, jn, jm, jw, 128), "one_side_pool")
 
 
@@ -338,6 +338,41 @@ def test_seg_compact_reaches_the_prelude(world, jax_blob, monkeypatch):
         assert torch.equal(got, torch.from_numpy(np.array(jax_blob))), \
             _blob_diff(got, jax_blob)
     assert seen == [True, False]
+
+
+def test_one_side_pool_rows_stay_inside_the_band(world, jax_blob,
+                                                 monkeypatch):
+    """The OS pool's rows past its live count may gather any gap slot
+    (``_compact``), and the band does not bound an idle slot's |gdiff|:
+    here they gather the idle slots in turn.  ``_phase1`` gives them wv = 0,
+    so every row the one_side kernel sees has wv in [0, band], and the step
+    still gives the JAX blob (``_scatter_pool`` drops those rows)."""
+    os_pool = world.statics["OS_POOL"]
+    compact, pool = tfull._compact, tfull._one_side_pool
+    live, pools = [], []
+
+    def compact_spy(active_flat, limit):
+        inv, n_active, over = compact(active_flat, limit)
+        if limit == os_pool:                 # _phase1's one_side pool
+            idle = torch.nonzero(~active_flat).flatten().to(inv.dtype)
+            j = torch.arange(limit)
+            inv = torch.where(j >= n_active, idle[j % idle.numel()], inv)
+            live.append(int(n_active))
+        return inv, n_active, over
+
+    def pool_spy(s, t, n, m, wv, I, *, w):
+        pools.append((wv.clone(), w))
+        return pool(s, t, n, m, wv, I, w=w)
+
+    monkeypatch.setattr(tfull, "_compact", compact_spy)
+    monkeypatch.setattr(tfull, "_one_side_pool", pool_spy)
+    got = world.torch_step()
+    assert torch.equal(got, torch.from_numpy(np.array(jax_blob))), \
+        _blob_diff(got, jax_blob)
+    (n_live,), ((wv, w),) = live, pools
+    assert w == world.statics["band"]
+    assert n_live < wv.shape[0] == os_pool
+    assert int(wv.min()) >= 0 and int(wv.max()) <= w
 
 
 # --------------------------------------------------------------------------

@@ -184,6 +184,31 @@ def test_cli_without_jax_chain_and_full_match_native(dataset, native_outputs,
 
 
 @pytest.fixture(scope="module")
+def native_band0(dataset):
+    """The reference CLI's --device native outputs at -w 0."""
+    d = dataset
+    _run(["--index", "-r", "ref.fa", "-k", "20"], d, RUN_CLI)
+    _run(["-m", "circminer_tpu.cli", "-r", "ref.fa", "-g", "ref.gtf", "-1",
+          "R1.fq", "-2", "R2.fq", "--pam", "-w", "0", "-o", "native_w0",
+          "--device", "native"], d)
+    return {s: (d / ("native_w0" + s)).read_bytes()
+            for s in (".circ_report", ".mapping.pam")}
+
+
+@pytest.mark.parametrize("device", ["gpu-wave", "gpu-full"])
+def test_cli_at_band_zero_matches_native(dataset, native_band0, device):
+    """-w 0 through the port's CLI with jax blocked: the wave service (under
+    gpu-wave, and stage 2 under gpu-full) warms up and answers inside the
+    one_side kernel's bound, byte-equal to the reference's native run."""
+    d = dataset
+    _run(["-r", "ref.fa", "-g", "ref.gtf", "-1", "R1.fq", "-2", "R2.fq",
+          "--pam", "-w", "0", "-o", f"w0_{device}", "--device", device,
+          "--torch-device", "cpu", "--batch-size", "64"], d, RUN_CLI)
+    for suffix, want in native_band0.items():
+        assert (d / (f"w0_{device}" + suffix)).read_bytes() == want, suffix
+
+
+@pytest.fixture(scope="module")
 def native_se_output(dataset):
     """The reference CLI's single-end --device native mapping of R1.fq."""
     d = dataset
