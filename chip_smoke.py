@@ -55,10 +55,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      gpu-full (traced with --trace-dir) and native, single-end -s with
      --device auto, gpu-full and native) on a small synthetic dataset:
      circ_report, mapping.pam and candidates.pam byte-equal to native, and
-     the trace names cm.walk_waves and a hand kernel;
+     the trace names cm.walk_waves and a hand kernel; then two concurrent
+     --device gpu-full processes joined by --coordinator (a gloo process
+     group, --num-hosts 2): circ_report byte-equal to the single-host run;
  12. the port's bench (python -m circminer_tpu_torch.bench --smoke) with
      --exec gpu-full --circ-device --repeat 2 and with --exec native: one
-     JSON line each, the reference bench's keys, equal events.
+     JSON line each, the reference bench's keys, equal events;
+ 13. multi-contig rounds, the port's analog of tools/grch38_run.py --mini:
+     3 simulated chromosomes (3, 2 and 1 Mbp), 20,000 pairs, a 2 Mbp
+     contig budget (CIRCMINER_CONTIG_SIZE) that packs them into 3 contigs,
+     indexed, mapped round by round and called by the port's CLI (run in
+     this process, with hooks) under --device gpu-full (stage 2 on the
+     card) and native: every true event called, mapping.pam, circ_report
+     and candidates.pam byte-equal, all four kernels launched by the map
+     and stage 2 after their warm-ups; per-round pairs and deferrals,
+     pairs/s and peak device memory reported;
+ 14. (run after phase 8) the sharded steps of parallel/mesh.py on one
+     4,096-pair chr21 batch: make_sharded_full_step and
+     make_index_sharded_full_step at world size 1 under NCCL (in this
+     process) and at world size 2 under gloo (two rank processes on this
+     card), each gathered blob bit-equal to the single-process step;
+     merge_bsj_candidates carries the gpu-full map's BSJ rows; step and
+     collective ms reported.
 
 The port owns every module it runs (simulator, index build, annotation,
 extension generators and its C++ engines, built from native/*.cpp into
@@ -67,10 +85,13 @@ package circminer_tpu is imported, and the run checks both at the end.  The last
 {"ok": true, "device": {...}}; the line before it carries the card's name
 and power limit, and the one before that the per-kernel JSON (launches on
 the gpu-full path: the map of phase 6 plus its stage 2 in phase 8, each
-counted from zero; ms, plain_ms, bound_ms at B = 1024; main_ms per launch
-at the row counts of the main path).
+counted from the end of its warm-up; launches_contigs in phase 13's
+gpu-full map and stage 2, counted so too;
+launches_mesh in phase 14's world-1 steps; ms, plain_ms, bound_ms at
+B = 1024; main_ms per launch at the row counts of the main path).
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -131,11 +152,21 @@ def cuda_ms(fn, iters, warm_s=0.0):
     return a.elapsed_time(b) / iters
 
 
-def device_ms(fn, kernel, iters, warm_s=0.2):
+# device records of the primer launches the tracer dropped, per device_ms
+# session (reported with the summary)
+PRIMER_LOST = []
+
+
+def device_ms(fn, kernel, iters, warm_s=0.2, primer=512):
     """Mean device time per launch of the CUDA kernel whose symbol holds
     ``kernel``, over iters calls of fn, from the profiler's device events:
     a kernel shorter than its wrapper's host cost would otherwise be timed
-    at the rate the host can launch it."""
+    at the rate the host can launch it.  Once a process has traced a long
+    run, the tracer drops the device records of the first launches of each
+    session (2-27 of them on the H100 host), so every session starts with
+    ``primer`` launches of another kernel (torch's one-cycle spin_kernel)
+    that are not counted; a session that kept fewer than nine in ten of
+    fn's launches is traced again, up to 3 times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -143,13 +174,14 @@ def device_ms(fn, kernel, iters, warm_s=0.2):
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(primer):
+                torch.cuda._sleep(1)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and kernel in e.name]
-        # the tracer may drop records; the mean is over those it kept, and
-        # a run that lost more than a tenth is taken again
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ev = [e for e in dev if kernel in e.name]
+        PRIMER_LOST.append(primer - sum("spin_kernel" in e.name for e in dev))
         if len(ev) >= iters * 9 // 10:
             break
     check(len(ev) >= iters * 9 // 10, f"the profiler saw {len(ev)} "
@@ -893,16 +925,16 @@ def phase_step_vs_plain(cfg, gi, db, reads, full, n_pairs=256):
     from circminer_tpu_torch.annotation.device import (AnnoDevice,
                                                        FinishAnnoDevice)
     from circminer_tpu_torch.pipeline.device_pipeline import (
-        SEG_PAD, ContigDeviceState)
+        ContigDeviceState)
     pipe = full["pipe"]
     statics = pipe._full_statics()
     pairs = make_pairs(reads[:n_pairs], cfg)
     st_gpu = pipe.states[0]
     st_cpu = ContigDeviceState.from_contig_index(gi.contigs[0], cfg, "cpu")
-    st_cpu.anno = AnnoDevice.from_contig(db.contigs[0], SEG_PAD,
+    st_cpu.anno = AnnoDevice.from_contig(db.contigs[0], pipe.seg_pad,
                                          device="cpu")
     st_cpu.fanno = FinishAnnoDevice.from_contig(
-        db.contigs[0], db.con2chr[0], SEG_PAD, device="cpu")
+        db.contigs[0], db.con2chr[0], pipe.seg_pad, device="cpu")
     st_cpu.genome = torch.from_numpy(gi.contigs[0].codes)
     args_gpu = full_step_args(pipe, pairs, torch.device("cuda"), n_pairs)
     args_cpu = full_step_args(pipe, pairs, torch.device("cpu"), n_pairs)
@@ -950,7 +982,8 @@ def phase_stage2(cfg, gi, db, full, device):
                            device=device)
         _ext.reset_launches()
         t0 = time.perf_counter()
-        card.run(list(bsj), device_ext=True)
+        with launches_after_warm():      # the run's own launches
+            card.run(list(bsj), device_ext=True)
         torch_sync(device)
         card_s = time.perf_counter() - t0
         launches = dict(_ext.LAUNCHES)
@@ -1160,6 +1193,415 @@ def phase_cli(torch_device="cuda", genome_len=100_000, n_reads=1000,
                     if "auto executor" in ln]
             log(f"[cli] -s {n_reads} reads: mapping.pam of --device {dev} "
                 f"byte-equal to --device native {'; '.join(info)}")
+        phase_coordinated_cli(d, env, pe, "gpu-full")
+
+
+def phase_coordinated_cli(d, env, pe, single):
+    """Two concurrent --device gpu-full processes on the card joined in one
+    gloo process group through --coordinator (each maps its stripe; host 0
+    runs stage 2 over both remain shards): circ_report byte-equal to the
+    single-host run ``single`` in directory ``d``."""
+    from circminer_tpu_torch.graft_entry import _free_port
+    cmd = [sys.executable, "-m", "circminer_tpu_torch.cli", *pe, "-o",
+           "coord", "--device", "gpu-full", "--coordinator",
+           f"127.0.0.1:{_free_port()}", "--num-hosts", "2"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--host-id", str(h)], cwd=d, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for h in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:       # a rank that hangs is stopped, not left
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for h, (p, (_, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0 and f"host {h} of 2 (gloo process group)"
+              in err, f"coordinated host {h} failed ({p.returncode}):\n"
+              f"{err[-3000:]}")
+    with open(os.path.join(d, "coord.circ_report"), "rb") as f:
+        got = f.read()
+    with open(os.path.join(d, single + ".circ_report"), "rb") as f:
+        want = f.read()
+    check(got == want and len(want) > 0, "the coordinated two-process "
+          "circ_report differs from the single-host run's")
+    log(f"[mesh-cli] two coordinated --device gpu-full processes (gloo "
+        f"group): circ_report byte-equal to the single-host run "
+        f"({len(want)} B); {wall:.1f} s wall")
+
+
+# --------------------------------------------------------------------------
+# phase 13: multi-contig rounds (the port's analog of grch38_run.py --mini)
+# --------------------------------------------------------------------------
+
+MINI_MBP = [("chr1", 3), ("chr2", 2), ("chr3", 1)]
+MINI_SEED = 20260821
+
+
+def mini_sim(d, n_reads=20_000, circ_frac=0.2, dup_frac=0.05):
+    """tools/grch38_run.py --mini's data with the port's simulator: 3
+    chromosomes of 3, 2 and 1 Mbp, pairs in proportion to their length,
+    a fifth of them circular; returns the set of true events."""
+    import numpy as np
+    from circminer_tpu_torch.sim import make_genome, simulate_reads
+    ref, gtf = os.path.join(d, "ref.fa"), os.path.join(d, "ref.gtf")
+    total = sum(bp for _, bp in MINI_MBP)
+    truth, done = set(), 0
+    with open(os.path.join(d, "R1.fq"), "w") as f1, \
+            open(os.path.join(d, "R2.fq"), "w") as f2:
+        for ci, (chrom, mbp) in enumerate(MINI_MBP):
+            bp = mbp * 1_000_000
+            g = make_genome(np.random.default_rng(MINI_SEED + ci), length=bp,
+                            n_genes=max(3, bp // 60_000), dup_frac=dup_frac,
+                            chrom=chrom, gene_prefix=f"{chrom}.G")
+            g.write_fasta(ref, width=0, append=ci > 0)
+            g.write_gtf(gtf, append=ci > 0)
+            n_i = (n_reads - done if ci == len(MINI_MBP) - 1
+                   else int(round(n_reads * mbp / total)))
+            done += n_i
+            n_circ = n_i // int(1 / circ_frac)
+            reads, events = simulate_reads(
+                np.random.default_rng(MINI_SEED + 1000 + ci), g, n_i - n_circ,
+                n_circ, read_len=100, err_rate=0.005,
+                name_prefix=f"{chrom}.")
+            for r in reads:
+                f1.write(f"@{r.name}\n{r.r1}\n+\n{'I' * len(r.r1)}\n")
+                f2.write(f"@{r.name}\n{r.r2}\n+\n{'I' * len(r.r2)}\n")
+            truth |= {(chrom, s, e) for s, e in events}
+    return ref, gtf, truth
+
+
+def called_events(report):
+    """(chrom, start, end) of each circ_report line (grch38_run.py's
+    phase_eval)."""
+    with open(report) as f:
+        return {(p[0], int(p[1]), int(p[2]))
+                for p in (line.split("\t") for line in f)}
+
+
+@contextlib.contextmanager
+def launches_after_warm():
+    """Within it, every warm-up of the stage-2 device service
+    (DeviceAlignService.warm, one launch of each DP kind before the
+    streamed region) sets the launch counts back to 0 when it is done, so
+    that the counts read after stage 2 are its own run's."""
+    from circminer_tpu_torch.ops import _ext
+    from circminer_tpu_torch.ops.align_device import DeviceAlignService
+    warm = DeviceAlignService.warm
+
+    def warm_then_reset(self):
+        warm(self)
+        _ext.reset_launches()
+    DeviceAlignService.warm = warm_then_reset
+    try:
+        yield
+    finally:
+        DeviceAlignService.warm = warm
+
+
+def cli_map_and_call(argv, device):
+    """The port's CLI in this process (cli.main with hooks), paired-end with
+    stage 2: per-round pairs and deferrals, map and stage-2 wall times, and
+    the kernel launches of the map and of stage 2, each counted from the
+    end of its warm-up."""
+    from circminer_tpu_torch import cli
+    from circminer_tpu_torch.ops import _ext
+    r = dict(rounds=[], t=time.perf_counter())
+
+    def mapping(pipe):
+        inner = pipe.map_stream
+        r["contigs"] = len(pipe.states)
+
+        def per_round(src, contig=0, **kw):
+            before = copy.deepcopy(pipe.full_stats)
+            t0 = time.perf_counter()
+            n = inner(src, contig=contig, **kw)
+            causes = {k: v - before["causes"].get(k, 0)
+                      for k, v in pipe.full_stats["causes"].items()
+                      if v != before["causes"].get(k, 0)}
+            r["rounds"].append(dict(
+                contig=contig, pairs=n, s=time.perf_counter() - t0,
+                deferred=pipe.full_stats["deferred"] - before["deferred"],
+                causes=causes))
+            return n
+        pipe.map_stream = per_round
+        torch_sync(device)
+        _ext.reset_launches()
+        r["t"] = time.perf_counter()
+
+    def mapped(pipe):
+        torch_sync(device)
+        r["map_s"] = time.perf_counter() - r["t"]
+        r["n"] = r["rounds"][0]["pairs"]
+        r["map_launches"] = dict(_ext.LAUNCHES)
+        r["t"] = time.perf_counter()
+
+    def called(pc):
+        torch_sync(device)
+        r["call_s"] = time.perf_counter() - r["t"]
+        r["call_launches"] = dict(_ext.LAUNCHES)
+
+    with launches_after_warm():
+        rc = cli.main(argv, dict(mapping=mapping, mapped=mapped,
+                                 called=called))
+    check(rc == 0, f"circminer_tpu_torch.cli {' '.join(argv)} returned {rc}")
+    r["launches"] = {k: r["map_launches"][k] + r["call_launches"][k]
+                     for k in REPLACES}
+    return r
+
+
+def phase_contigs(device, batch=4096):
+    """grch38_run.py --mini on the port's CLI (in this process): 20,000
+    pairs over 3 contigs (CIRCMINER_CONTIG_SIZE = 2 Mbp at --index),
+    --device gpu-full (stage 2 on the card) and native: every true event
+    called, PAM, circ_report and candidates.pam byte-equal, and all four
+    kernels launched by the gpu-full map and its stage 2."""
+    import torch
+    from circminer_tpu_torch import cli
+    old = os.environ.get("CIRCMINER_CONTIG_SIZE")
+    os.environ["CIRCMINER_CONTIG_SIZE"] = "2000000"
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            ref, gtf, truth = mini_sim(d)
+            check(cli.main(["--index", "-r", ref, "-k", "20"]) == 0,
+                  "--mini --index failed")
+            log(f"[contigs] simulated {sum(bp for _, bp in MINI_MBP)} Mbp "
+                f"in {len(MINI_MBP)} chromosomes, {len(truth)} true events, "
+                f"indexed, {time.perf_counter() - t0:.1f} s")
+            common = ["-r", ref, "-g", gtf, "-1", os.path.join(d, "R1.fq"),
+                      "-2", os.path.join(d, "R2.fq"), "--pam", "-l", "100",
+                      "--batch-size", str(batch), "--torch-device",
+                      device.type]
+            runs = {}
+            for tag in ("native", "gpu-full"):
+                torch.cuda.reset_peak_memory_stats(device)
+                runs[tag] = r = cli_map_and_call(
+                    common + ["-o", os.path.join(d, tag), "--device", tag],
+                    device)
+                r["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+                check(r["contigs"] == 3, f"--mini packed into {r['contigs']} "
+                      f"contigs, not 3")
+                called = called_events(os.path.join(d, tag + ".circ_report"))
+                missed = sorted(truth - called)
+                check(not missed, f"{tag}: {len(missed)} of {len(truth)} true "
+                      f"events not called, first {missed[:3]}")
+                log(f"[contigs] {tag}: {r['n']} pairs over {r['contigs']} "
+                    f"contigs, map {r['map_s']:.3f} s ({r['n'] / r['map_s']:.1f}"
+                    f" pairs/s), map+call {r['map_s'] + r['call_s']:.3f} s "
+                    f"({r['n'] / (r['map_s'] + r['call_s']):.1f} pairs/s); all "
+                    f"{len(truth)} true events called ({len(called)} called)")
+                for rd in r["rounds"]:
+                    log(f"[contigs]   {tag} round {rd['contig'] + 1}: "
+                        f"{rd['pairs']} pairs in, {rd['deferred']} deferred "
+                        f"{dict(sorted(rd['causes'].items()))}, "
+                        f"{rd['s']:.3f} s")
+            for suffix in (".mapping.pam", ".circ_report", ".candidates.pam"):
+                with open(os.path.join(d, "gpu-full" + suffix), "rb") as f:
+                    a = f.read()
+                with open(os.path.join(d, "native" + suffix), "rb") as f:
+                    b = f.read()
+                check(a == b and len(b) > 0,
+                      f"--mini {suffix}: gpu-full and native differ")
+    finally:
+        if old is None:
+            os.environ.pop("CIRCMINER_CONTIG_SIZE")
+        else:
+            os.environ["CIRCMINER_CONTIG_SIZE"] = old
+    full = runs["gpu-full"]
+    for name in REPLACES:
+        check(full["launches"][name] > 0, f"kernel {name} was not launched "
+              f"by the --mini gpu-full map or its stage 2")
+    log(f"[contigs] gpu-full == native (mapping.pam, circ_report, "
+        f"candidates.pam); peak device memory {full['peak_gb']:.3f} GB; "
+        f"launches after the warm-ups: map {full['map_launches']}, stage 2 "
+        f"{full['call_launches']}")
+    return runs
+
+
+# --------------------------------------------------------------------------
+# phase 14: the sharded steps (parallel/mesh.py)
+# --------------------------------------------------------------------------
+
+def mesh_payload(full, reads, cfg, gi, db, batch=4096):
+    """The sharded steps' problem: one chr21 batch of ``batch`` pairs of the
+    gpu-full map as that pipeline steps it (its statics, index, genome and
+    annotation, on the CPU for the ranks to load), and the map's BSJ rows
+    (genome_spos, global pair index) striped over 2 ranks."""
+    import dataclasses
+    import numpy as np
+    from circminer_tpu_torch.annotation.device import (AnnoDevice,
+                                                       FinishAnnoDevice)
+    pipe = full["pipe"]
+    args = full_step_args(pipe, make_pairs(reads[:batch], cfg), "cpu", batch)
+    st = pipe.states[0]
+    ci = gi.contigs[0]
+    index = {r.name: i for i, r in enumerate(reads)}
+    rows = [(r1.mr.genome_spos, index[r1.rname]) for r1, _ in
+            full["bsj_pairs"]]
+    per = [[row for row in rows if row[1] % 2 == d] for d in range(2)]
+    cap = max(len(p) for p in per)
+    cand = np.full((2, cap, 2), 2 ** 30, np.int32)
+    for d, part in enumerate(per):
+        cand[d, :len(part)] = part
+    return dict(
+        cfg=cfg, ci=dataclasses.replace(ci, _entry_key=None),
+        ad=AnnoDevice.from_contig(db.contigs[0], pipe.seg_pad, device="cpu"),
+        fa=FinishAnnoDevice.from_contig(db.contigs[0], db.con2chr[0],
+                                        pipe.seg_pad, device="cpu"),
+        seqs4=args[0].numpy(), lens4=args[1].numpy(), mr_in=args[2].numpy(),
+        statics=pipe._full_statics(), seed_cap=16,
+        prefix=None if st.entry_prefix is None else
+        st.entry_prefix.cpu().numpy(), prefix_shift=st.prefix_shift,
+        prefix_iters=st.prefix_iters, contig_num=0,
+        steps=("full", "index_full", "merge"),
+        cand=cand.reshape(-1, 2), cand_count=np.array([len(p) for p in per],
+                                                      np.int32)), rows
+
+
+def collective_shape(payload):
+    """(rows, L, NL, cap) of the index-sharded full step's exchanges on
+    ``payload`` (mesh_payload)."""
+    rows, L = payload["seqs4"].shape
+    k = payload["cfg"].kmer
+    return [rows, L, (L + k - 1) // k, payload["statics"]["cap"]]
+
+
+def time_collectives(mesh, rows, L, NL, cap, iters=5):
+    """Mean ms (CUDA events) of each collective of the index-sharded full
+    step alone, at its shapes on ``mesh``: the all-gather of this rank's
+    [rows / D, L] int8 queries and the psum of the [rows, NL, cap] int32
+    seed positions."""
+    import torch
+    from circminer_tpu_torch.parallel import mesh as pm
+    seqs = torch.zeros((rows // mesh.size, L), dtype=torch.int8,
+                       device=mesh.device)
+    pos = torch.zeros((rows, NL, cap), dtype=torch.int32, device=mesh.device)
+    return {f"all_gather seqs {tuple(seqs.shape)} int8":
+            cuda_ms(lambda: pm.all_gather(mesh, seqs), iters),
+            f"psum pos {tuple(pos.shape)} int32":
+            cuda_ms(lambda: pm.psum(mesh, pos), iters)}
+
+
+def collectives_rank(spec):
+    """``chip_smoke.py --collectives-rank SPEC``: one rank of
+    collectives_world (a gloo group, the rank on cuda:0)."""
+    import torch.distributed as dist
+    from circminer_tpu_torch.parallel import mesh as pm
+    pm.init_group("gloo", spec["init"], spec["size"], spec["rank"])
+    try:
+        ms = time_collectives(pm.make_mesh(spec["size"], device="cuda:0"),
+                              *spec["shape"])
+    finally:
+        dist.destroy_process_group()
+    if spec["rank"] == 0:
+        with open(spec["out"], "w") as f:
+            json.dump(ms, f)
+    return 0
+
+
+def collectives_world(n, shape, timeout=300):
+    """time_collectives at world size ``n`` under gloo, every rank on this
+    card, in ``n`` processes of this script that share one deadline; rank
+    0's result."""
+    from circminer_tpu_torch.graft_entry import _free_port
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank0.json")
+        init = f"tcp://127.0.0.1:{_free_port()}"
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--collectives-rank",
+             json.dumps(dict(rank=r, size=n, init=init, shape=shape,
+                             out=out))], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(n)]
+        deadline = time.monotonic() + timeout
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:      # a rank that hangs is stopped, not left
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(len(logs) == n and all(p.returncode == 0 for p in procs),
+              f"collective ranks failed ({[p.returncode for p in procs]}):\n"
+              + "\n".join(x[-2000:] for x in logs))
+        with open(out) as f:
+            return json.load(f)
+
+
+def phase_mesh(full, reads, cfg, gi, db, device, batch=4096):
+    """make_sharded_full_step and make_index_sharded_full_step on one
+    4,096-pair chr21 batch: at world size 1 under a NCCL group in this
+    process, and at world size 2 under gloo with both ranks on this card
+    (NCCL refuses two ranks on one device), each gathered blob bit-equal to
+    the single-process gpu-full step's; merge_bsj_candidates carries the
+    gpu-full map's BSJ rows.  Returns the world-1 run's kernel launches."""
+    import numpy as np
+    import torch.distributed as dist
+    from circminer_tpu_torch.graft_entry import (_free_port, run_ranks,
+                                                 sharded_outputs)
+    from circminer_tpu_torch.ops import _ext
+    from circminer_tpu_torch.parallel import mesh as pm
+    pipe = full["pipe"]
+    args = full_step_args(pipe, make_pairs(reads[:batch], cfg), device, batch)
+    want = run_full_step(pipe, pipe.states[0], args,
+                         pipe._full_statics()).cpu().numpy()
+    t0 = time.perf_counter()
+    payload, rows = mesh_payload(full, reads, cfg, gi, db, batch)
+    log(f"[mesh] payload: {batch} pairs, {len(rows)} BSJ rows, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def held(tag, out):
+        for name in ("full", "index_full"):
+            check(out[name].shape == want.shape and
+                  np.array_equal(out[name], want),
+                  f"{tag} {name} step differs from the single-process step "
+                  f"on {int((out[name] != want).any(axis=1).sum())} rows")
+        log(f"[mesh] {tag}: sharded and index-sharded full steps bit-equal "
+            f"to the single-process step ({want.shape[0]} pairs); step ms "
+            f"{ {k: round(v, 3) for k, v in out['ms'].items()} }; "
+            f"collectives alone {out['collective_ms']} ms")
+
+    shape = collective_shape(payload)
+    pm.init_group("nccl", f"tcp://127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        mesh = pm.make_mesh(1)
+        _ext.reset_launches()
+        one = sharded_outputs(mesh, dict(payload,
+                                         steps=("full", "index_full")))
+        launches = dict(_ext.LAUNCHES)
+        check(one["backend"] == "nccl", f"backend {one['backend']}")
+        one["collective_ms"] = time_collectives(mesh, *shape)
+    finally:
+        dist.destroy_process_group()
+    for name in FULL_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+              f"sharded steps")
+    held("world 1, nccl", one)
+    t0 = time.perf_counter()
+    two = run_ranks(2, payload, backend="gloo", device="cuda", timeout=600)
+    check(two["backend"] == "gloo" and two["size"] == 2,
+          f"ranks ran {two['backend']} x {two['size']}")
+    wall = time.perf_counter() - t0
+    two["collective_ms"] = collectives_world(2, shape)
+    held(f"world 2, gloo, both ranks on cuda:0 ({wall:.1f} s with start-up)",
+         two)
+    cg, ng = two["merge"]
+    got = {tuple(r) for r in cg.reshape(-1, 2) if r[0] != 2 ** 30}
+    check(got == set(rows) and int(ng.sum()) == len(rows) and
+          cg.shape[0] == 2, f"merge_bsj_candidates gathered {len(got)} of "
+          f"{len(rows)} BSJ rows")
+    log(f"[mesh] merge_bsj_candidates: {cg.shape} candidates and counts "
+        f"{ng.tolist()} on every rank, the union of the gpu-full map's "
+        f"{len(rows)} BSJ rows; launches at world 1 {launches}")
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -1225,6 +1667,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--collectives-rank"]:
+        return collectives_rank(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--ab"]:
         card = card_report()
         try:
@@ -1260,6 +1704,7 @@ def main() -> int:
         main_shapes = phase_main_shapes(full["pipe"], reads, cfg, 4096)
         s2_launches, s2 = phase_stage2(cfg, gi, db, full, device)
         launches = {k: full_launches[k] + s2_launches[k] for k in REPLACES}
+        mesh_launches = phase_mesh(full, reads, cfg, gi, db, device)
         with tempfile.TemporaryDirectory() as cache:
             # the auto phases and the CLI probe into a fresh decision cache
             os.environ["CIRCMINER_CACHE_DIR"] = cache
@@ -1268,6 +1713,7 @@ def main() -> int:
             phase_cli()
             os.environ.pop("CIRCMINER_CACHE_DIR")
         bench_full, bench_native = phase_bench(device)
+        mini = phase_contigs(device)
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib",
                                                "circminer_tpu"))
@@ -1282,6 +1728,9 @@ def main() -> int:
         return (f"map {n / r['map_s']:.1f} pairs/s, map+call "
                 f"{n / (r['map_s'] + r['circ_s']):.1f} pairs/s")
     fs = full_m["stats"]
+
+    def mini_rate(tag):
+        return round(mini[tag]["n"] / mini[tag]["map_s"], 1)
     log(f"[summary] lookup {lookup_ms:.4f} ms/batch; gpu-full "
         f"{rates(full)}, {fs['deferred']}/{fs['reads']} deferred, step "
         f"{full_m['step_ms']:.1f} ms/batch, device busy "
@@ -1291,8 +1740,12 @@ def main() -> int:
         f"{s2['host_s']:.3f} s; SE reads/s "
         f"{ {k: round(v, 1) for k, v in se_rates.items()} }; auto -> "
         f"{auto['executor']}; bench gpu-full {bench_full['value']} vs "
-        f"native {bench_native['value']} reads/s; "
-        f"total {time.perf_counter() - t_all:.1f} s")
+        f"native {bench_native['value']} reads/s; --mini 3 contigs map "
+        f"pairs/s gpu-full {mini_rate('gpu-full')}, native "
+        f"{mini_rate('native')}; total {time.perf_counter() - t_all:.1f} s")
+    log(f"[profiler] {len(PRIMER_LOST)} traced sessions dropped "
+        f"{min(PRIMER_LOST)}-{max(PRIMER_LOST)} of their 512 primer "
+        f"records (in session order: {PRIMER_LOST})")
     # main_ms: per launch at each row count the gpu-full step sends, and
     # edit_sc's at each row count of the stage-2 waves
     main_shapes.update(s2["shapes"])
@@ -1306,7 +1759,9 @@ def main() -> int:
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": None,
          "chain_floor_ms": kern[name]["chain_floor_ms"],
-         "main_ms": main_ms[name]} for name in REPLACES]}))
+         "main_ms": main_ms[name],
+         "launches_contigs": mini["gpu-full"]["launches"][name],
+         "launches_mesh": mesh_launches[name]} for name in REPLACES]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,20 +15,25 @@ and the finish in host C++; ``gpu-chain`` = lookup and chain DP on the
 device, k-best extraction and the finish in host C++; ``gpu-full`` = the
 whole map step on the device (the fused device-full step), deferred reads
 replayed in host C++, and the stage-2 extension DPs on the device too;
-``gpu-wave`` = device lookup plus wave-batched extension on the
+``gpu-wave`` = the lookup of ``auto`` plus wave-batched extension on the
 hand-written DP kernels; ``native`` = everything in host C++; ``host`` =
 the per-read Python oracle.  ``--torch-device`` picks the torch device of
 the device executors (``cuda`` by default; ``cpu`` runs their plain torch
 versions).  ``--trace-dir`` (or ``CIRCMINER_TRACE_DIR``) writes a
-torch.profiler Chrome trace of the search stages.  Not ported yet:
-multi-host runs.
+torch.profiler Chrome trace of the search stages.
+
+Multi-host runs (``--num-hosts N --host-id h``, with ``--coordinator
+host:port`` for a gloo process group; see ``parallel/distributed.py``):
+host h maps pairs h, h+N, ... of the input into ``OUT.h<h>.*``; host 0
+waits for every host's remain shard and runs stage 2 over all of them,
+writing the single ``OUT.circ_report``.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-from typing import List
+from typing import Dict, List, Optional
 
 from .config import (Config, CONCRD, CHIBSJ, CHI2BSJ, DISCARDMAPREPORT,
                      PAMFORMAT, SAMFORMAT)
@@ -39,7 +44,7 @@ EXECUTORS = {"auto": ("auto", "native"),
              "gpu": ("device", "native"),
              "gpu-chain": ("device-chain", "native"),
              "gpu-full": ("device-full", "native"),
-             "gpu-wave": ("device", "device"),
+             "gpu-wave": ("auto", "device"),
              "native": ("native", "native")}
 
 
@@ -81,7 +86,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "the torch device, chain + finish in host C++; "
                         "gpu-chain = lookup + chain DP on the device; "
                         "gpu-full = the fused map step and the stage-2 "
-                        "extension DPs on the device; gpu-wave = device "
+                        "extension DPs on the device; gpu-wave = auto's "
                         "lookup + wave-batched extension on the CUDA DP "
                         "kernels; native = all host C++; host = per-read "
                         "Python oracle")
@@ -89,8 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --index: also write the reference's mrsFAST "
                         "binary index format for interop/parity checks")
     p.add_argument("--coordinator",
-                   help="coordinator address (host:port) for multi-host "
-                        "runs (not ported yet)")
+                   help="coordinator address (host:port) of a gloo "
+                        "process group for multi-host runs; also via "
+                        "CIRCMINER_COORDINATOR")
     p.add_argument("--num-hosts", type=int, default=None)
     p.add_argument("--host-id", type=int, default=None)
     p.add_argument("--trace-dir",
@@ -141,16 +147,18 @@ def run_index(args, cfg: Config) -> int:
     return 0
 
 
-def _unported(args) -> str:
-    if args.coordinator or (args.num_hosts or 1) > 1:
-        return "multi-host runs are not ported to circminer_tpu_torch yet"
-    return ""
-
-
-def run_search(args, cfg) -> int:
+def run_search(args, cfg, hooks=None) -> int:
+    import torch.distributed as dist
     from .utils.timing import device_trace
-    with device_trace(args.trace_dir):
-        return _run_search_stages(args, cfg)
+    had_group = dist.is_initialized()
+    try:
+        with device_trace(args.trace_dir):
+            return _run_search_stages(args, cfg, hooks or {})
+    finally:
+        # a coordinated run destroys the process group it made, and only
+        # that one: a caller's own group outlives the call
+        if dist.is_initialized() and not had_group:
+            dist.destroy_process_group()
 
 
 def _host_mappers(db, gi, cfg, n_contigs):
@@ -160,8 +168,9 @@ def _host_mappers(db, gi, cfg, n_contigs):
             for c in range(n_contigs)]
 
 
-def _run_search_stages(args, cfg) -> int:
+def _run_search_stages(args, cfg, hooks) -> int:
     import os
+    import time
     from .annotation.annotation import AnnotationDB
     from .index.build import load_genome_index
     from .io.fasta import GenomePacker, chrloc2conloc
@@ -172,8 +181,22 @@ def _run_search_stages(args, cfg) -> int:
     from .utils.logging import set_trace_level
     from .pipeline.circ import ProcessCirc
     from .pipeline.device_pipeline import DeviceMappingPipeline
+    from .parallel.distributed import (maybe_initialize, stripe_pairs,
+                                       shard_output_prefix)
+
+    def hook(point, obj):
+        if point in hooks:
+            hooks[point](obj)
 
     set_trace_level(args.verbosity)
+    host_id, n_hosts = maybe_initialize(args.coordinator, args.num_hosts,
+                                        args.host_id)
+    if n_hosts > 1:
+        import torch.distributed as dist
+        print(f"[INFO] host {host_id} of {n_hosts}"
+              + (" (gloo process group)" if dist.is_initialized() else ""),
+              file=sys.stderr)
+    out_prefix = shard_output_prefix(args.output, host_id, n_hosts)
     gp = GenomePacker(args.reference)
     info = gp.load_index_info()
     if os.path.exists(gp.index_fname + ".npz"):
@@ -207,9 +230,7 @@ def _run_search_stages(args, cfg) -> int:
         if args.device != "host":
             # SE has no wave finish: gpu-wave maps as auto, as in the
             # reference
-            chain_exec = ("auto" if args.device == "gpu-wave"
-                          else EXECUTORS[args.device][0])
-            pipe = pipeline(chain_exec, "native")
+            pipe = pipeline(EXECUTORS[args.device][0], "native")
             n = pipe.map_stream_se(FastqReader(args.seq, cfg), out, fmt)
         else:
             mappers = _host_mappers(db, gi, cfg, n_contigs)
@@ -229,23 +250,28 @@ def _run_search_stages(args, cfg) -> int:
         return 0
 
     if cfg.stage != 1:
-        out = SamOutput(args.output, fmt, info)
-        remain = RemainWriter(args.output, last_round)
+        out = SamOutput(out_prefix, fmt, info)
+        remain = RemainWriter(out_prefix, last_round)
 
         def conloc(chrname, s, e):
             return chrloc2conloc(db.chr2con, chrname, s, e)
 
         def pairs_with_ordinal():
-            # the circ-stage sort tie-breaks on the global pair ordinal
-            for k, (r1, r2) in enumerate(read_pairs(args.seq1, args.seq2,
-                                                    cfg)):
+            # the circ-stage sort tie-breaks on the global pair ordinal, so
+            # a multi-host merge reproduces the single-host stream order;
+            # host h maps pairs h, h+N, ... of the stream
+            for k, (r1, r2) in stripe_pairs(
+                    read_pairs(args.seq1, args.seq2, cfg), host_id, n_hosts,
+                    with_index=True):
                 r1.ordinal = k
                 yield r1, r2
 
         if args.device != "host":
             pipe = pipeline(*EXECUTORS[args.device])
+            hook("mapping", pipe)
             n = pipe.map_stream_all_contigs(pairs_with_ordinal(), out,
                                             remain, conloc)
+            hook("mapped", pipe)
             if pipe.wave_stats["batches"]:
                 ws, sv = pipe.wave_stats, pipe.align_svc
                 print(f"[INFO] wave engine: {ws['waves']} waves over "
@@ -277,13 +303,28 @@ def _run_search_stages(args, cfg) -> int:
                 n += 1
         out.close()
         remain.close()
+        if n_hosts > 1:  # completion sentinel for host 0's shard wait
+            with open(f"{out_prefix}_{last_round}_remain.done", "w"):
+                pass
         print(f"[INFO] mapping done: {n} pairs", file=sys.stderr)
 
     if cfg.stage != 0:
-        recs = iter_sorted_remain(
-            f"{args.output}_{last_round}_remain_R1.fastq",
-            f"{args.output}_{last_round}_remain_R2.fastq", cfg,
-            internal=cfg.internal_sort)
+        if n_hosts > 1:
+            # stage 2 runs on host 0 over every host's remain shard (shared
+            # filesystem); the other hosts are done after mapping
+            if host_id != 0:
+                return 0
+            shards = [shard_output_prefix(args.output, h, n_hosts)
+                      for h in range(n_hosts)]
+            r1p = [f"{p}_{last_round}_remain_R1.fastq" for p in shards]
+            r2p = [f"{p}_{last_round}_remain_R2.fastq" for p in shards]
+            for p in shards:   # wait for stragglers, as the reference does
+                while not os.path.exists(f"{p}_{last_round}_remain.done"):
+                    time.sleep(1.0)
+        else:
+            r1p = f"{args.output}_{last_round}_remain_R1.fastq"
+            r2p = f"{args.output}_{last_round}_remain_R2.fastq"
+        recs = iter_sorted_remain(r1p, r2p, cfg, internal=cfg.internal_sort)
         # gpu-full also runs the stage-2 extension DPs on the device
         # (speculate-and-select waves), as the reference's tpu-full does
         device_ext = args.device == "gpu-full"
@@ -297,12 +338,18 @@ def _run_search_stages(args, cfg) -> int:
                   f"host requests", file=sys.stderr)
         pc.report_events(args.output + ".circ_report")
         pc.write_candidates(args.output + ".candidates.pam")
+        hook("called", pc)
         print(f"[INFO] circRNA detection done: {len(pc.circ_res)} candidate "
               f"reads, report at {args.output}.circ_report", file=sys.stderr)
     return 0
 
 
-def main(argv: List[str] = None) -> int:
+def main(argv: List[str] = None, hooks: Optional[Dict] = None) -> int:
+    """Run the CLI on ``argv``.  ``hooks`` (for an in-process caller that
+    measures the paired-end path) maps a point of the search to a callable
+    given that stage's object: "mapping" (the pipeline, warmed up, before
+    the streamed map), "mapped" (the pipeline, after it) and "called" (the
+    ProcessCirc, after stage 2 wrote its report)."""
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     if args.index:
@@ -314,11 +361,7 @@ def main(argv: List[str] = None) -> int:
     if args.batch_size < 1:
         print("error: --batch-size must be at least 1", file=sys.stderr)
         return 1
-    why = _unported(args)
-    if why:
-        print(f"error: {why}", file=sys.stderr)
-        return 2
-    return run_search(args, cfg)
+    return run_search(args, cfg, hooks)
 
 
 if __name__ == "__main__":

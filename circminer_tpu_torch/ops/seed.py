@@ -13,7 +13,9 @@ positions of each slot's range from the entry table.
 These are plain torch functions (the reference lowers them through XLA and
 has no Pallas twin); all integers are int32 as in the reference.
 ``build_device_prefix`` is the reference's numpy helper, copied because the
-original module imports jax.
+original module imports jax.  ``lookup_gather_sharded_local`` is one
+shard's part of the lookup when the entry table is bucket-sharded over
+several devices (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -165,6 +167,49 @@ def lookup_batch_device(read_codes: torch.Tensor, read_lens: torch.Tensor,
 
     return (strided(qpos, -1), strided(left.to(_i32), 0), strided(cnt, 0),
             strided(high, False))
+
+
+def lookup_gather_sharded_local(read_codes: torch.Tensor,
+                                read_lens: torch.Tensor,
+                                local_hv: torch.Tensor,
+                                local_checksum: torch.Tensor,
+                                local_pos: torch.Tensor,
+                                bucket_lo: torch.Tensor,
+                                bucket_hi: torch.Tensor,
+                                *, k: int, cs_len: int, n_slots: int,
+                                seed_lim: int, cap: int):
+    """One shard's contribution to a bucket-sharded seed lookup: the reads
+    are the full (all-gathered) query batch, the index arrays this shard's
+    contiguous bucket slice (``parallel.mesh.shard_index_arrays``).  Results
+    are zero for queries whose window hash another shard owns, so the
+    shards' contributions combine by an all-reduce sum.
+
+    Returns (qpos [B, NL], identical on every shard; pos [B, NL, cap];
+    cnt [B, NL]; high [B, NL]), int32, over the non-overlapping k-mer
+    lists."""
+    hv, cv, ok, qpos, _ = _kmer_hash_parts(
+        read_codes, read_lens, k=k, cs_len=cs_len, n_slots=n_slots)
+
+    mine = ok & (hv >= bucket_lo) & (hv < bucket_hi)
+    hv_safe = torch.where(mine, hv, -1)
+
+    n_local = local_hv.shape[0]
+    iters = max(1, int(np.ceil(np.log2(max(2, n_local + 1)))) + 1)
+    left = _bisect_hv_cv(local_hv, local_checksum, hv_safe, cv,
+                         side_right=False, iters=iters)
+    right = _bisect_hv_cv(local_hv, local_checksum, hv_safe, cv,
+                          side_right=True, iters=iters)
+
+    cnt = (right - left).to(_i32)
+    high = (cnt > seed_lim) & mine
+    cnt = torch.where(mine & ~high, cnt, 0).to(_i32)
+
+    offs = torch.arange(cap, dtype=_i32, device=read_codes.device)
+    # the gather index clamps into the slice, as JAX's gather does
+    idx = torch.clamp(left[..., None] + offs, 0, n_local - 1)
+    pos = local_pos[idx.long()].to(_i32)
+    mask = offs < torch.clamp(cnt, max=cap)[..., None]
+    return qpos, torch.where(mask, pos, 0), cnt, high.to(_i32)
 
 
 def gather_seeds_device(entry_pos: torch.Tensor, start: torch.Tensor,

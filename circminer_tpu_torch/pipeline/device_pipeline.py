@@ -80,7 +80,6 @@ from ..utils.timing import GLOBAL_TIMER as T
 CHAIN_EXECS = ("auto", "device", "device-chain", "device-full", "native")
 EXTEND_EXECS = ("device", "native")
 AUTO_CHOICES = ("device", "native")   # what "auto" resolves to
-SEG_PAD = 16   # segments kept per annotation interval on the device
 
 
 @dataclasses.dataclass
@@ -180,12 +179,13 @@ class DeviceMappingPipeline:
     "native" (host C++ lookup) or "auto" (device or native, picked at
     warmup); extend_exec: "device" (wave-batched DP
     kernels) or "native" (C++ finish engine; device-full brings its own
-    finish).  ``device`` is the torch device of the device executors
-    ("cuda" by default; "cpu" runs their plain versions)."""
+    finish).  ``seg_pad`` is the number of segments kept per annotation
+    interval on the device.  ``device`` is the torch device of the device
+    executors ("cuda" by default; "cpu" runs their plain versions)."""
 
     def __init__(self, db, gi, cfg: Config, batch_size: int = 4096,
-                 chain_exec: str = "device", extend_exec: str = "native",
-                 device="cuda"):
+                 seg_pad: int = 16, chain_exec: str = "auto",
+                 extend_exec: str = "native", device="cuda"):
         if chain_exec not in CHAIN_EXECS:
             raise ValueError(f"chain_exec must be one of {CHAIN_EXECS}, "
                              f"got {chain_exec!r}")
@@ -200,6 +200,7 @@ class DeviceMappingPipeline:
         self.gi = gi
         self.cfg = cfg
         self.batch = batch_size
+        self.seg_pad = seg_pad
         self.chain_exec = chain_exec
         self.extend_exec = extend_exec
         uses_device = chain_exec != "native" or extend_exec == "device"
@@ -216,11 +217,11 @@ class DeviceMappingPipeline:
             if chain_exec != "native":
                 st = ContigDeviceState.from_contig_index(ci, cfg, self.device)
             if chain_exec in ("device-chain", "device-full"):
-                st.anno = AnnoDevice.from_contig(db.contigs[c], SEG_PAD,
+                st.anno = AnnoDevice.from_contig(db.contigs[c], seg_pad,
                                                  device=self.device)
             if chain_exec == "device-full":
                 st.fanno = FinishAnnoDevice.from_contig(
-                    db.contigs[c], db.con2chr[c], SEG_PAD,
+                    db.contigs[c], db.con2chr[c], seg_pad,
                     device=self.device)
                 st.genome = torch.from_numpy(ci.codes).to(self.device)
             self.states.append(st)
@@ -371,7 +372,7 @@ class DeviceMappingPipeline:
             k=cfg.kmer, cs_len=cfg.checksum_len, n_slots=cfg.max_seg_cnt,
             seed_lim=cfg.seed_lim, cap=16, max_ed=cfg.max_ed,
             max_sc=cfg.max_sc, band=cfg.band_width, max_tlen=cfg.max_tlen,
-            max_intron=cfg.max_intron, seg_pad=SEG_PAD,
+            max_intron=cfg.max_intron, seg_pad=self.seg_pad,
             scan_level=cfg.scan_level, KB=6, P_MAX=8, W_MAX=16,
             OS_POOL=max(2048, B), XD_POOL=max(4096, 2 * B),
             EX_ITERS=48, mat=sm.mat, mis=sm.mis, ind=sm.ind, xd=sm.xd,

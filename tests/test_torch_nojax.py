@@ -4,7 +4,8 @@ A subprocess blocks every ``jax`` and every ``circminer_tpu`` import with a
 ``sys.meta_path`` finder, imports every module of circminer_tpu_torch, and
 runs the port's CLI on the CPU on a small make_synthetic-style dataset
 (index, paired-end mapping under each executor, stage 2 on the host or the
-device; single-end mapping; a --trace-dir run).  Its outputs must be
+device; single-end mapping; a --trace-dir run; tests/test_torch_distributed.py
+runs its multi-host CLI the same way).  Its outputs must be
 byte-equal to those of the reference CLI (``circminer_tpu.cli --device
 native``, run in a process of its own) on the same inputs."""
 
@@ -96,7 +97,8 @@ def test_every_port_module_imports_without_jax(tmp_path):
     assert n == len(mods) >= 10
     assert {f"circminer_tpu_torch.{m}" for m in (
         "bench", "pipeline.circ", "ops.seed_host", "utils.timing",
-        "config", "sim", "ops.filter_native", "pipeline.mapping")} <= \
+        "config", "sim", "ops.filter_native", "pipeline.mapping",
+        "parallel.distributed", "parallel.mesh", "graft_entry")} <= \
         set(mods)
 
 
@@ -140,6 +142,9 @@ def test_cli_without_jax_matches_reference_cli(dataset):
     res = _run(common + ["-o", "port", "--device", "gpu-wave",
                          "--torch-device", "cpu"], d, RUN_CLI)
     assert "wave engine" in res.stderr
+    # gpu-wave maps pairs with the auto lookup, as the reference's tpu-wave:
+    # the probe runs (and caches nothing from the CPU)
+    assert "auto executor: d2h" in res.stderr
     _run(["-m", "circminer_tpu.cli"] + common + ["-o", "ref", "--device",
                                                  "native"], d)
     for suffix in (".circ_report", ".mapping.pam"):
@@ -268,15 +273,3 @@ def test_device_trace_follows_the_environment(tmp_path, monkeypatch):
     with gzip.open(trace, "rt") as f:
         assert "cm.test" in {e.get("name")
                              for e in json.load(f)["traceEvents"]}
-
-
-def test_cli_refuses_what_is_not_ported(dataset, capsys):
-    """Multi-host runs are the one part of the reference CLI not ported."""
-    from circminer_tpu_torch.cli import main
-    d = str(dataset)
-    argv = ["-r", f"{d}/ref.fa", "-g", f"{d}/ref.gtf", "--torch-device",
-            "cpu", "-1", f"{d}/R1.fq", "-2", f"{d}/R2.fq"]
-    assert main(argv + ["--num-hosts", "2", "--host-id", "0"]) == 2
-    assert "multi-host runs are not ported" in capsys.readouterr().err
-    assert main(argv + ["--coordinator", "localhost:1234"]) == 2
-    assert "multi-host runs are not ported" in capsys.readouterr().err

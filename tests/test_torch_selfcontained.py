@@ -7,8 +7,10 @@ reference's relative path, and the C++ engines are built from the port's
 own ``native/*.cpp`` into ``build/circminer_tpu_torch/``.  The copies are
 pinned here to their originals: identical but for import lines and the
 named deviations (the library build path of the ``*_native.py`` bindings,
-the torch device of stage 2's wave service).  The CLI subprocesses of
-``test_torch_nojax.py`` block the reference as they block jax.
+the torch device of stage 2's wave service, the process group of
+``parallel/distributed.py``).  The CLI subprocesses of
+``test_torch_nojax.py`` block the reference as they block jax; the ranks
+of ``graft_entry.run_ranks`` check it themselves.
 """
 
 import ast
@@ -23,6 +25,7 @@ import circminer_tpu_torch
 from circminer_tpu_torch import cli as tcli
 from circminer_tpu_torch.config import Config as PortConfig
 from circminer_tpu_torch.ops import _native
+from circminer_tpu_torch.parallel import mesh as tmesh
 from circminer_tpu_torch.utils import timing as ttiming
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,6 +49,17 @@ DEVIATIONS = {
          "svc = DeviceAlignService(self.cfg, device=self.device)"},
         {"def __init__(self, db, gi, cfg: Config, output_prefix: str):",
          "svc = DeviceAlignService(self.cfg)"}),
+    # a gloo process group in place of jax.distributed
+    "parallel/distributed.py": (
+        {"__doc__", "INIT_TIMEOUT"},
+        {'"""Initialize torch.distributed when configured; returns',
+         "# one gloo process group over every host (host 0 serves the store)",
+         'dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",',
+         "world_size=num_hosts, rank=host_id,", "timeout=INIT_TIMEOUT)"},
+        {'"""Initialize jax.distributed when configured; returns',
+         "# full jax.distributed runtime (device collectives across hosts)",
+         "jax.distributed.initialize(coordinator_address=coordinator,",
+         "num_processes=num_hosts,", "process_id=host_id)"}),
 }
 COPIES = ["config.py", "sim.py", "annotation/annotation.py",
           "index/__init__.py", "index/build.py", "index/mrsfast_format.py",
@@ -55,7 +69,7 @@ COPIES = ["config.py", "sim.py", "annotation/annotation.py",
           "ops/seed_native.py", "pipeline/categories.py", "pipeline/circ.py",
           "pipeline/extend.py", "pipeline/extend_batch.py",
           "pipeline/mapping.py", "pipeline/output.py", "pipeline/types.py",
-          "utils/logging.py"]
+          "utils/logging.py", "parallel/distributed.py"]
 NATIVE = ["align_kernels.cpp", "chain_kernels.cpp", "circ_kernels.cpp",
           "filter_kernels.cpp", "lookup_kernels.cpp"]
 
@@ -105,6 +119,11 @@ def _imported_modules(tree):
 
 def test_port_never_imports_the_reference():
     n = 0
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert {"circminer_tpu_torch/graft_entry.py",
+            "circminer_tpu_torch/parallel/mesh.py",
+            "circminer_tpu_torch/parallel/distributed.py",
+            "chip_smoke.py"} <= scanned
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -178,6 +197,7 @@ def _ref_source(rel, *names):
 
 
 @pytest.mark.parametrize("rel,port_module,names", [
+    ("parallel/mesh.py", tmesh, ("shard_index_arrays",)),
     ("cli.py", tcli, ("config_from_args", "run_index")),
     ("utils/timing.py", ttiming, ("PhaseTimer", "timed")),
 ])
@@ -239,3 +259,19 @@ def test_native_engines_build_into_the_port_build_dir():
     srcs = [filter_native._SRC, filter_native._CIRC_SRC]
     assert _native.library_path("x", srcs, []) != \
         _native.library_path("x", srcs, ["-pthread"])
+
+
+def test_pipeline_takes_the_reference_signature():
+    """DeviceMappingPipeline takes the reference's parameters and defaults
+    (seg_pad, chain_exec="auto"), then the port's torch device."""
+    from circminer_tpu.pipeline.device_pipeline import \
+        DeviceMappingPipeline as Ref
+    from circminer_tpu_torch.pipeline.device_pipeline import \
+        DeviceMappingPipeline as Port
+
+    def params(cls):
+        return [(p.name, p.default) for p in
+                inspect.signature(cls.__init__).parameters.values()]
+    assert params(Port) == params(Ref) + [("device", "cuda")]
+    assert dict(params(Port))["chain_exec"] == "auto"
+    assert tcli.EXECUTORS["gpu-wave"] == ("auto", "device")
