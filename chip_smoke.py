@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab OLD.cu NEW.cu ...   # kernel sources A/B
+    python3 chip_smoke.py --replay [TREE]    # the step's replay, one tree
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -16,6 +17,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      beside its bound (bytes over HBM bandwidth against int32
      operations over the ALU peak, from these inputs) and its chain floor;
      then all four bit-equal at every band w in SWEEP_W and B in SWEEP_B;
+     then the chain DP (chain_dp) and the mr fold's pair steps
+     (mr_pair_fold) bit-equal to their plain versions over adversarial
+     inputs: CHAIN_SWEEP (S = 16, 128, 500; NL = 2, 6, 15; P = 3, 16, 20)
+     and FOLD_SWEEP (at both scan_levels); and chain_dp timed beside its
+     plain version and bound at gpu-chain's S = 128 and 500 buckets
+     (CHAIN_BUCKETS, which no chr21 read fills);
   3. the seed lookup on the card against the host C++ NativeSeeder on one
      batch of the phase-4 index: start, cnt and high bit-equal;
   4. the slice end to end at bench.py's default chr21 configuration (47 Mbp
@@ -26,16 +33,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      pair's MatchedRead and the called event sets must be equal, and every
      kernel must have been launched by the gpu-wave run;
   5. the gpu-chain executor (lookup + dense chain DP on the card) on the
-     same reads: equal to native pair for pair and event for event;
+     same reads: equal to native pair for pair and event for event, with
+     the chain_dp launches by occupancy bucket;
   6. the main path, the gpu-full executor (the fused device_full_step
      on the card as one CUDA graph, captured at warm-up and replayed per
      batch; deferred reads replayed on the host) on the same reads: equal
-     to native, with the xdrop, one_side and edit_end kernels each
-     launched on that run, counted per replay (replays times the launches
-     the capture recorded); reported: pairs/s, reads deferred and their
-     causes, and the device-busy share and per-stage device time (the
-     cm.* spans) of one torch.profiler run of a map of the first 8,192
-     pairs with the step run eagerly (a replay shows no spans);
+     to native, with the xdrop, one_side, edit_end, chain_dp and
+     mr_pair_fold kernels each launched on that run, counted per replay
+     (replays times the launches the capture recorded; chain_dp once and
+     mr_pair_fold twice per replay); reported: pairs/s, reads deferred
+     and their causes, and the device-busy share and per-stage device
+     time (the cm.* spans) of one torch.profiler run of a map of the
+     first 8,192 pairs with the step run eagerly (a replay shows no
+     spans);
   7. one device_full_step on the first 256 pairs on the card (kernels) and
      on the CPU (plain versions) with the same statics: the raw int32
      [B, MRF + 1] blobs bit-equal, and the card step with the per-column
@@ -43,7 +53,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      300 M index entries) bit-equal to it too; then one more 4,096-pair
      step, run eagerly, with the
      kernels' inputs recorded: launches per step and rows of each kernel,
-     each bit-equal to its plain version there and timed, with its bound;
+     each bit-equal to its plain version there and timed, with its bound
+     (the chain DP's and the fold's inputs too);
   8. stage 2 of the gpu-full path on the card: the BSJ pairs of the
      phase-6 map (sorted as bench.py sorts them) through the port's
      ProcessCirc.run(device_ext=True) (speculate-and-select waves on the
@@ -113,7 +124,9 @@ the gpu-full path: the map of phase 6 (per graph replay) plus its stage 2
 in phase 8, each counted from the end of its warm-up; launches_contigs in phase 13's
 gpu-full map and stage 2, counted so too;
 launches_mesh in phase 14's world-1 steps; ms, plain_ms, bound_ms at
-B = 1024; main_ms per launch at the row counts of the main path).
+B = 1024 for the DP kernels, at the main path's recorded inputs for
+chain_dp and mr_pair_fold; main_ms per launch at the row counts of the
+main path; chain_dp's buckets at CHAIN_BUCKETS).
 """
 
 import contextlib
@@ -128,7 +141,13 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED_GENOME, SEED_READS = 20260817, 20260818
 KERNEL_SOURCE = "circminer_tpu_torch/csrc/align_kernels.cu"
-FULL_KERNELS = ("xdrop", "one_side", "edit_end")   # in the gpu-full map
+SOURCES = {"chain_dp": "circminer_tpu_torch/csrc/chain_dp.cu",
+           "mr_pair_fold": "circminer_tpu_torch/csrc/mr_fold.cu"}
+DP_KERNELS = ("xdrop", "edit_sc", "edit_end", "one_side")
+# in the gpu-full map
+FULL_KERNELS = ("xdrop", "one_side", "edit_end", "chain_dp", "mr_pair_fold")
+# launches of one gpu-full step (and so of one replay)
+PER_STEP = {"chain_dp": 1, "mr_pair_fold": 2}
 # the keys of every line of the reference bench (bench.py:329-343)
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "executor",
               "backend", "n_pairs", "genome_len", "events", "true_events",
@@ -138,6 +157,8 @@ REPLACES = {
     "edit_sc": "circminer_tpu/ops/pallas_align.py:182",    # _edit_sc_kernel
     "edit_end": "circminer_tpu/ops/align_device.py:48",    # edit_end_scan_ref
     "one_side": "circminer_tpu/ops/align_device.py:122",   # one_side_scan_ref
+    "chain_dp": "circminer_tpu/ops/chain.py:251",    # _chain_dp_core_lanes
+    "mr_pair_fold": "circminer_tpu/ops/device_full.py:1510",   # pair_body
 }
 
 
@@ -512,6 +533,346 @@ def phase_kernels(device, B=1024, seed=7):
     return res
 
 
+def chain_dp_inputs(rng, b, NL, S, P, *, k=3, max_ed=2, max_intron=6,
+                    span=40):
+    """Adversarial inputs of the chain DP (numpy, the prelude's shapes):
+    every value drawn from a window of ``span`` so that each gate, tie and
+    junction branch is taken often; ~40% of cells and ~10% of rows
+    invalid, repeated positions, minpos at exactly pi + max_intron, and ~5%
+    of rows near the int32 limit, where the sums wrap."""
+    import numpy as np
+    M = NL * S
+
+    def r(lo, hi, shape):
+        return rng.integers(lo, hi, size=shape).astype(np.int64)
+    pos = r(0, span, (b, M))
+    pos[:, 1::3] = pos[:, 0:M - 1:3][:, :pos[:, 1::3].shape[1]]   # ties
+    big = rng.random(b) < 0.05
+    big[-1] = True
+    pos[big] += 2 ** 31 - 2 * span
+    qp = np.repeat(np.arange(NL)[None, :] * k + r(-1, 2, (b, NL)), S, 1)
+    valid = rng.random((b, M)) < 0.6
+    valid[rng.random(b) < 0.1] = False
+    valid[0] = False
+    ub = pos + r(-2, span // 2, (b, M))
+    ub[big] = 2 ** 31 - 1
+    mee = np.where(rng.random((b, M)) < 0.4, 0,
+                   pos + r(0, 2 * k + 2, (b, M)))
+    e1 = pos + k - 1
+    sep = e1.T[:, None, :] + r(-2, 6, (M, P, b))
+    snp = r(0, span, (M, P, b))
+    # repeated segments: several accept at once
+    rep = rng.random((M, 1, b)) < 0.5
+    sep[:, 1:] = np.where(rep, sep[:, :-1], sep[:, 1:])
+    snp[:, 1:] = np.where(rep, snp[:, :-1], snp[:, 1:])
+    snp[:, :, big] += 2 ** 31 - 2 * span
+    pv = rng.random((M, P, b)) < 0.5
+
+    def i32(x):
+        return x.astype(np.int32)     # wraps, as the device sums do
+    arrays = (i32(pos), i32(qp), valid, i32(ub), i32(mee), i32(e1), i32(sep),
+              i32(snp), pv)
+    return arrays, dict(NL=NL, S=S, k=k, max_ed=max_ed,
+                        max_intron=max_intron)
+
+
+def fold_inputs(rng, B, P, *, max_tlen=60):
+    """Adversarial inputs of the mr fold's pair steps (numpy): mr states of
+    every type, pairs of every final type the rules compare, ed / mlen /
+    tlen values from narrow windows (ties in go_for_update), gm on and off
+    both sides, ~10% stopped and ~10% not live reads, and ~10% pairs past
+    MAXDISCRDTLEN."""
+    import numpy as np
+    from circminer_tpu_torch.ops.device_full import (MM_USED, MR_KEYS,
+                                                     PAIR_KEYS)
+
+    def r(lo, hi, shape):
+        return rng.integers(lo, hi, size=shape).astype(np.int32)
+    mr = r(0, 40, (B, len(MR_KEYS)))
+    mr[:, MR_KEYS.index("type")] = np.array(
+        [0, 1, 5, 5, 7, 9, 11, 13], np.int32)[r(0, 8, B)]
+    mr[:, MR_KEYS.index("gm")] = r(0, 2, B)
+    for f in ("mlen_r1", "mlen_r2"):
+        mr[:, MR_KEYS.index(f)] = r(48, 52, B)
+    for f in ("ed_r1", "ed_r2"):
+        mr[:, MR_KEYS.index(f)] = r(0, 3, B)
+    mr[:, MR_KEYS.index("tlen")] = r(-2, 5, B)
+    shp = (B, 2, P)
+    field = {
+        "spos": r(0, 80, shp), "qspos": r(0, 10, shp),
+        "qepos": r(0, 100, shp), "mlen": r(48, 52, shp),
+        "led": r(0, 2, shp), "med": r(0, 3, shp), "red": r(0, 2, shp),
+        "dir": r(-1, 2, shp),
+        "tfinal": np.array([0, 0, 0, 0, 9, 9, 9, 11, 5], np.int32)[
+            r(0, 9, shp)],
+        "iv_s": r(-1, 3, shp), "iv_e": r(-1, 3, shp),
+        "l_ok": r(0, 2, shp), "r_ok": r(0, 2, shp)}
+    cols = {}
+    for side in ("l_", "r_"):
+        f = {kk: v[rng.permutation(B)] for kk, v in field.items()}
+        f["epos"] = f["spos"] + r(0, 80, shp)
+        far = rng.random(shp) < 0.1
+        f["spos"] = np.where(far, f["spos"] + 30000, f["spos"])
+        for kk in MM_USED:
+            cols[side + kk] = f[kk]
+    cols.update(se=r(0, 2, shp), sg_iv=r(0, 2, shp), bsj_hit=r(0, 2, shp),
+                ct_tl=np.where(rng.random(shp) < 0.2,
+                               r(max_tlen - 5, max_tlen + 6, shp),
+                               r(-2, 5, shp)), ct_inn=r(0, 3, shp),
+                ct_df=r(0, 2, shp), success=(rng.random(shp) < 0.8)
+                .astype(np.int32), fwd_left=r(0, 2, shp))
+    pairs = np.stack([cols[kk] for kk in PAIR_KEYS], axis=-1)
+    # ~30% of reads repeat their first pair: exact ties in go_for_update
+    dup = rng.random(B) < 0.3
+    pairs[dup] = pairs[dup][:, :, :1]
+    orient = np.stack([(rng.random((B, P)) < 0.8).astype(np.int32),
+                       r(0, 3, (B, P)), r(0, 3, (B, P)), r(0, 5, (B, P))],
+                      axis=-1)
+    o_t = r(0, 2, B)
+    live = rng.random(B) < 0.9
+    stopped = rng.random(B) < 0.1
+    return (mr, pairs, o_t, orient, live, stopped), dict(
+        max_tlen=max_tlen, contig_num=int(rng.integers(0, 3)))
+
+
+# the chain DP's adversarial sweep, (S, NL, P, rows): the gpu-chain
+# buckets' S (16, 128, 500), lists of reads up to 300 bases at k = 20 (NL
+# up to 15), P = seg_pad 16 (registers), 3 and 20 (the scan from memory)
+CHAIN_SWEEP = ((16, 2, 16, 4096), (16, 6, 16, 4096), (16, 15, 16, 1024),
+               (16, 6, 3, 257), (16, 6, 20, 257), (128, 2, 16, 256),
+               (128, 6, 16, 256), (128, 15, 16, 64), (500, 2, 16, 64),
+               (500, 6, 16, 32), (500, 15, 16, 8))
+# the fold's, (reads, P_MAX), each at scan_level 0 and 1
+FOLD_SWEEP = ((4096, 8), (33, 1), (1, 2), (4096, 2))
+# a floor of the fold's int32 operations per (read, pair step): its masks
+# and selects (~40) and the gates of its eight guarded updates (~60)
+FOLD_STEP_OPS = 100
+
+
+def chain_fold_calls(name, args, kw):
+    """(kernel wrapper call, plain version call) of chain_dp or
+    mr_pair_fold on these arguments."""
+    from circminer_tpu_torch.ops import chain_device as cd
+    from circminer_tpu_torch.ops import device_full as df
+    if name == "chain_dp":
+        return (lambda: cd.chain_dp(*args, **kw),
+                lambda: cd._chain_dp_plain(*args, **kw))
+    return (lambda: df.mr_pair_fold(*args, **kw),
+            lambda: df._mr_pair_fold_plain(*args, **kw))
+
+
+def hold_outputs(name, kern, plain, tag=""):
+    """Each output of the kernel bit-equal to the plain version's (same
+    dtype and shape), or SmokeFailure; returns the max abs error (0)."""
+    import torch
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{name}{tag} output {i}: {g.dtype} {tuple(g.shape)} vs plain "
+              f"{w.dtype} {tuple(w.shape)}")
+        if not torch.equal(g, w):
+            err = int((g.long() - w.long()).abs().max())
+            bad = (g != w).reshape(g.shape[0], -1).any(1).nonzero()[:3, 0]
+            raise SmokeFailure(
+                f"{name}{tag} output {i} differs from its plain version "
+                f"(max abs err {err}) at rows {bad.tolist()}: "
+                f"{g[bad[:1]].tolist()} vs {w[bad[:1]].tolist()}")
+    return 0
+
+
+def phase_chain_fold(device, seed=11):
+    """Phase 2 for the chain DP and the mr fold's pair steps: each kernel
+    bit-equal to its plain version on the card over the adversarial
+    CHAIN_SWEEP and FOLD_SWEEP."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    for S, NL, P, b in CHAIN_SWEEP:
+        arrs, kw = chain_dp_inputs(
+            np.random.default_rng(seed + 31 * S + 7 * NL + P), b, NL, S, P)
+        args = [torch.from_numpy(a).to(device) for a in arrs]
+        hold_outputs("chain_dp", *chain_fold_calls("chain_dp", args, kw),
+                     f" (S={S}, NL={NL}, P={P}, b={b})")
+    t1 = time.perf_counter()
+    for B, P in FOLD_SWEEP:
+        for scan_level in (0, 1):
+            arrs, kw = fold_inputs(
+                np.random.default_rng(seed + B + 10 * P + scan_level), B, P)
+            args = [torch.from_numpy(a).to(device) for a in arrs]
+            hold_outputs("mr_pair_fold", *chain_fold_calls(
+                "mr_pair_fold", args, dict(kw, scan_level=scan_level)),
+                f" (B={B}, P={P}, scan_level={scan_level})")
+    log(f"[kernels] chain_dp bit-equal to plain over (S, NL, P, rows) in "
+        f"{CHAIN_SWEEP} ({t1 - t0:.1f} s); mr_pair_fold over (B, P) in "
+        f"{FOLD_SWEEP} x scan_level 0, 1 ({time.perf_counter() - t1:.1f} "
+        f"s); adversarial inputs (chain_dp_inputs, fold_inputs)")
+
+
+# gpu-chain's occupancy buckets above S = 16 at their row chunks
+# (DeviceMappingPipeline._chunk_for) and the default config's NL = 15
+# (max_read_len 300, k 20): (S, rows)
+CHAIN_BUCKETS = ((128, 2048), (500, 128))
+
+
+def phase_chain_buckets(device, seed=13, NL=15, P=16):
+    """chain_dp at gpu-chain's S = 128 and 500 buckets on the adversarial
+    inputs (no chr21 read fills them): bit-equal to its plain version,
+    its device ms, the plain version's ms and its bound.  Returns
+    {"S<S>": record}."""
+    import numpy as np
+    import torch
+    out = {}
+    for S, b in CHAIN_BUCKETS:
+        arrs, kw = chain_dp_inputs(np.random.default_rng(seed + S), b, NL,
+                                   S, P)
+        args = [torch.from_numpy(a).to(device) for a in arrs]
+        kern, plain = chain_fold_calls("chain_dp", args, kw)
+        err = hold_outputs("chain_dp", kern, plain,
+                           f" (bucket S={S}, NL={NL}, P={P}, b={b})")
+        bound_ms, bound_by, ops = chain_fold_bound("chain_dp", args, kw)
+        r = dict(rows=b, NL=NL, P=P, max_abs_err=err,
+                 ms=device_ms(kern, "chain_dp_kernel", 3, warm_s=0.0),
+                 plain_ms=cuda_ms(plain, 1), bound_ms=bound_ms,
+                 bound_by=bound_by, ops=ops)
+        out[f"S{S}"] = r
+        log(f"[kernels] chain_dp at the gpu-chain bucket S={S} ({b} rows, "
+            f"NL={NL}, P={P}, adversarial inputs): bit-equal to plain; "
+            f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.1f} ms; bound "
+            f"{bound_ms:.6f} ms ({bound_by}, {ops} int32 ops)")
+    return out
+
+
+def chain_dp_work(posf, qposf, validf, ub, mee, e1, sep_c, snp_c, pv_c, *,
+                  NL, S, k, max_ed, max_intron):
+    """int32 operations the chain DP needs on these inputs (the plain
+    version's gates, counted): 3 per transition (row, cell of list l,
+    target of a later list: the candidate's add, the running maximum's
+    compare and select), 5 per target of a valid cell (minpos's compare
+    and select, the base gates), 8 per target past the base gates (the gap
+    distance and gate), 6 per junction segment scanned (those with pv_e,
+    up to the first that accepts, where the gap gate failed and pjv >
+    e1)."""
+    import torch
+    b, P = posf.shape[0], sep_c.shape[1]
+    pos_T, v_T, ub_T, mee_T, e1_T = posf.T, validf.T, ub.T, mee.T, e1.T
+    ops = 0
+    for l in range(NL - 1):
+        sl = slice(l * S, (l + 1) * S)
+        pi, v_l = pos_T[sl][:, None, :], v_T[sl][:, None, :]
+        ub_l, mee_l, e1_l = (x[sl][:, None, :] for x in (ub_T, mee_T, e1_T))
+        n_j = NL - 1 - l
+        ops += 3 * S * S * b * n_j + 5 * int(v_l.sum()) * S * n_j
+        for j in range(l + 1, NL):
+            pjv = pos_T[j * S:(j + 1) * S][None]
+            rd = qposf[:, j * S] - qposf[:, l * S] - k
+            minpos = torch.where(pjv > pi, pjv, 2 ** 31 - 1).amin(
+                dim=1, keepdim=True)
+            base = (v_l & (minpos <= pi + max_intron)
+                    & v_T[j * S:(j + 1) * S][None] & (pjv > pi)
+                    & (pjv <= ub_l))
+            gd = pjv - pi - k
+            g_ok = ((mee_l == 0) | ((pjv + k - 1) <= mee_l)) \
+                & ((gd - rd).abs() <= max_ed)
+            need = base & ~g_ok & (pjv > e1_l)
+            ops += 8 * int(base.sum())
+            for p in range(P):
+                e12 = sep_c[sl, p:p + 1] - e1_l
+                beg = pjv - snp_c[sl, p:p + 1]
+                take = need & pv_c[sl, p:p + 1] & (e12 >= 0)
+                ops += 6 * int(take.sum())
+                need = need & ~(take & (beg >= 0)
+                                & ((e12 + beg - rd).abs() <= max_ed))
+    return ops
+
+
+def chain_dp_bytes(posf, qposf, validf, ub, mee, e1, sep_c, snp_c, pv_c, *,
+                   NL, S, **_):
+    """Bytes the chain DP must move on these inputs, counted as
+    chain_dp_work counts its operations: the position and valid bit of
+    every cell, one query offset per list and the two int32 outputs; and
+    only for a valid source cell (lists 0 .. NL-2) its three bounds and P
+    pv bits, sep where pv is set and snp where e12end = sep - e1 >= 0
+    too.  Nothing else enters the result."""
+    b, M = posf.shape
+    src = slice(0, (NL - 1) * S)
+    v = validf[:, src].T[:, None, :]                       # [M', 1, b]
+    pv = pv_c[src] & v
+    e12_ok = pv & (sep_c[src] - e1[:, src].T[:, None, :] >= 0)
+    return (b * M * (4 + 1) + b * NL * 4 + 2 * b * M * 4
+            + int(v.sum()) * (3 * 4 + pv_c.shape[1])
+            + 4 * int(pv.sum()) + 4 * int(e12_ok.sum()))
+
+
+def chain_fold_bound(name, args, kw):
+    """(bound ms, what sets it, int32 ops): the bytes these inputs need,
+    each read once and each output written once, over HBM bandwidth,
+    against the operations over the ALU peak.  The fold reads one
+    orientation's half of the pairs."""
+    if name == "chain_dp":
+        nbytes = chain_dp_bytes(*args, **kw)
+        ops = chain_dp_work(*args, **kw)
+    else:
+        mr, pairs = args[0], args[1]
+        B, _, P, F = pairs.shape
+        nbytes = B * (20 * 4 + P * F * 4 + 4 + P * 4 * 4 + 2 + 20 * 4 + 6 * 4)
+        ops = B * P * FOLD_STEP_OPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", ops)
+
+
+def recording_chain_fold(store):
+    """Wrap chain_device.chain_dp and device_full.mr_pair_fold so that the
+    first inputs of each (kernel, rows) are kept in ``store`` and every
+    call is counted there; returns the function that undoes it."""
+    from circminer_tpu_torch.ops import chain_device as cd
+    from circminer_tpu_torch.ops import device_full as df
+    fns = {"chain_dp": (cd, cd.chain_dp),
+           "mr_pair_fold": (df, df.mr_pair_fold)}
+
+    def wrap(name, fn):
+        def rec(*args, **kw):
+            key = (name, args[0].shape[0])
+            if key not in store:
+                store[key] = dict(args=[a.clone() for a in args],
+                                  kw=dict(kw), count=0)
+            store[key]["count"] += 1
+            return fn(*args, **kw)
+        return rec
+    for name, (mod, fn) in fns.items():
+        setattr(mod, name, wrap(name, fn))
+
+    def undo():
+        for name, (mod, fn) in fns.items():
+            setattr(mod, name, fn)
+    return undo
+
+
+def time_chain_fold(store, where, iters=50):
+    """Per (kernel, rows) of ``store`` (``recording_chain_fold``): its calls
+    ``where``, bit-equality with the plain version on the recorded
+    inputs, its device ms per launch (profiler), the plain version's ms
+    (CUDA events) and its bound."""
+    res = {}
+    for (name, rows), rec in sorted(store.items()):
+        args, kw = rec["args"], rec["kw"]
+        kern, plain = chain_fold_calls(name, args, kw)
+        err = hold_outputs(name, kern, plain, f" ({where}, {rows} rows)")
+        bound_ms, bound_by, ops = chain_fold_bound(name, args, kw)
+        r = dict(rows=rows, launches=rec["count"], max_abs_err=err,
+                 ms=device_ms(kern, f"{name}_kernel", iters),
+                 plain_ms=cuda_ms(plain, 3), bound_ms=bound_ms,
+                 bound_by=bound_by, ops=ops)
+        res.setdefault(name, []).append(r)
+        log(f"[main-shapes] {name} x{rec['count']} {where} at {rows} rows "
+            f"({kw}): bit-equal to plain; "
+            f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms; bound "
+            f"{bound_ms:.6f} ms ({bound_by}, {ops} int32 ops)")
+    return res
+
+
 def recording_inputs(store):
     """Wrap ``_ext.launch`` so that the first input of each (kernel, rows)
     shape is kept in ``store`` with its statics and every launch is counted
@@ -572,8 +933,9 @@ def phase_main_shapes(pipe, reads, cfg, batch):
     """One more 4,096-pair step of the gpu-full map, run eagerly, with the
     kernels' inputs recorded, each timed there (``time_recorded``)."""
     import torch
-    store = {}
+    store, store2 = {}, {}
     undo = recording_inputs(store)
+    undo2 = recording_chain_fold(store2)
     pipe.step_graph = False       # a replay calls no wrapper
     try:
         pipe.map_stream(iter(make_pairs(reads[:batch], cfg)))
@@ -581,7 +943,9 @@ def phase_main_shapes(pipe, reads, cfg, batch):
     finally:
         pipe.step_graph = True
         undo()
-    return time_recorded(store, f"per {batch}-pair step")
+        undo2()
+    where = f"per {batch}-pair step"
+    return time_recorded(store, where), time_chain_fold(store2, where)
 
 
 def phase_seg_compact(full, reads, cfg, device, batch=4096):
@@ -744,7 +1108,7 @@ def declared_statics(src):
     with open(src) as f:
         text = f.read()
     out = {}
-    for sym, _ in _ext.KERNELS.values():
+    for sym in (_ext.KERNELS[name].sym for name in _ext.DP_KERNELS):
         params = [p.strip() for p in re.search(
             rf"int {sym}\(([^)]*)\)", text).group(1).split(",")]
         out[sym] = len(params) - params.index("int L") - 2
@@ -762,7 +1126,8 @@ def phase_ab(sources, w=3, rows=(1024, 4096, 8192, 512), iters=200):
     import torch
     from circminer_tpu_torch.ops import _ext
     from circminer_tpu_torch.ops.align import ScoreMat
-    flags = [f for f in _ext.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    flags = [f for f in _ext.NVCC_FLAGS if f not in ("-Xptxas", "-v")] + [
+        "-shared"]
     out_dir = os.path.join(HERE, "build", "ab")
     os.makedirs(out_dir, exist_ok=True)
     procs = []
@@ -796,7 +1161,8 @@ def phase_ab(sources, w=3, rows=(1024, 4096, 8192, 512), iters=200):
         stream = torch.cuda.current_stream().cuda_stream
         for turn in (sources, sources[::-1]):
             for src in turn:
-                for name, (sym, _) in _ext.KERNELS.items():
+                for name in _ext.DP_KERNELS:
+                    sym = _ext.KERNELS[name].sym
                     out = torch.empty((B, ncols[name]), dtype=torch.int32,
                                       device="cuda")
                     fn = getattr(libs[src], sym)
@@ -818,6 +1184,23 @@ def phase_ab(sources, w=3, rows=(1024, 4096, 8192, 512), iters=200):
     return {src: {name: {b: sum(v) / len(v) for b, v in per.items()}
                   for name, per in kern.items()}
             for src, kern in times.items()}
+
+
+def phase_replay(batch=4096, turns=3, iters=10):
+    """``python3 chip_smoke.py --replay [TREE]``: the gpu-full map of the
+    16,384 chr21 pairs (its step captured at warm-up, one replay per
+    batch) and then the device ms per replay of its graph (CUDA events,
+    ``turns`` times ``iters`` replays of the last batch): the step's A/B
+    across commits, one process per tree, in turns."""
+    import torch
+    cfg, gi, db, reads, _ = chr21_setup()
+    r = run_slice(cfg, gi, db, reads, "device-full", "native",
+                  torch.device("cuda"), batch)
+    graph = r["pipe"].full_graph
+    check(graph.captures == 1, f"{graph.captures} captures")
+    return dict(map_pairs_per_s=r["n"] / r["map_s"], map_s=r["map_s"],
+                replay_ms=[cuda_ms(graph.replay, iters)
+                           for _ in range(turns)])
 
 
 # --------------------------------------------------------------------------
@@ -967,8 +1350,9 @@ def phase_slice(cfg, gi, db, reads, truth, device, batch=4096):
           f"{len(native['events'])}")
     check(len(wave["events"]) > 0, "no circRNA event called")
     if device.type == "cuda":  # on the CPU the wrappers run plain versions
-        for name, cnt in launches.items():
-            check(cnt > 0, f"kernel {name} was not launched on the main path")
+        for name in DP_KERNELS:
+            check(launches[name] > 0,
+                  f"kernel {name} was not launched on the main path")
     truth_set = set(truth)
     matched = sum(1 for e in wave["events"] if e in truth_set)
     sv, ws = wave["pipe"].align_svc, wave["pipe"].wave_stats
@@ -1005,9 +1389,31 @@ def check_equal_to_native(tag, run, native):
 
 
 def phase_chain(cfg, gi, db, reads, native, device, batch=4096):
-    chain = run_slice(cfg, gi, db, reads, "device-chain", "native", device,
-                      batch)
+    """gpu-chain against native; the chain_dp kernel's launches by
+    occupancy bucket (S) of the run."""
+    from circminer_tpu_torch.ops import _ext
+    from circminer_tpu_torch.ops import chain_device as cd
+    wrapper, by_s = cd.chain_dp, {}
+
+    def counted(*args, **kw):
+        by_s[kw["S"]] = by_s.get(kw["S"], 0) + 1
+        return wrapper(*args, **kw)
+
+    def main_path(pipe):
+        _ext.reset_launches()
+        by_s.clear()
+    cd.chain_dp = counted
+    try:
+        chain = run_slice(cfg, gi, db, reads, "device-chain", "native",
+                          device, batch, on_main_path=main_path)
+    finally:
+        cd.chain_dp = wrapper
     check_equal_to_native("gpu-chain", chain, native)
+    check(_ext.LAUNCHES["chain_dp"] == sum(by_s.values()) > 0,
+          f"gpu-chain launched chain_dp {_ext.LAUNCHES['chain_dp']} times "
+          f"for {by_s} calls by bucket")
+    log(f"[gpu-chain] chain_dp launches by occupancy bucket S: "
+        f"{dict(sorted(by_s.items()))}")
     return chain
 
 
@@ -1104,6 +1510,9 @@ def phase_full(cfg, gi, db, reads, native, device, batch=4096):
     check(launches == {k: replays * per_replay[k] for k in launches},
           f"gpu-full launches {launches} are not {replays} replays of "
           f"{per_replay}")
+    check(all(per_replay[k] == v for k, v in PER_STEP.items()),
+          f"a replay launched {per_replay}, not {PER_STEP} of the chain DP "
+          f"and the fold")
     fs = copy.deepcopy(pipe.full_stats)   # the profiled run below adds to it
     check(fs["reads"] == len(reads), f"device-full saw {fs['reads']} reads")
     log(f"[gpu-full] {fs['reads']} reads, {fs['deferred']} deferred "
@@ -1865,6 +2274,14 @@ def main() -> int:
               "(circminer_tpu_torch/ not found beside this script)",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--replay"]:
+        # the package of TREE (another checkout, e.g. a parent commit
+        # unpacked with git archive), timed by this script's phases
+        tree = os.path.abspath(sys.argv[2] if len(sys.argv) > 2 else HERE)
+        sys.path.insert(0, tree)
+        print(json.dumps(dict(phase_replay(), tree=tree,
+                              card=card_report())))
+        return 0
     sys.path.insert(0, HERE)
     if sys.argv[1:2] == ["--collectives-rank"]:
         return collectives_rank(json.loads(sys.argv[2]))
@@ -1895,6 +2312,8 @@ def main() -> int:
         device = torch.device("cuda")
         lap("1 device+build")
         kern = phase_kernels(device)
+        phase_chain_fold(device)
+        buckets = phase_chain_buckets(device)
         lap("2 kernels")
         cfg, gi, db, reads, truth = chr21_setup()
         lap("chr21 setup")
@@ -1908,7 +2327,8 @@ def main() -> int:
                                                  device)
         lap("6 gpu-full")
         phase_step_vs_plain(cfg, gi, db, reads, full)
-        main_shapes = phase_main_shapes(full["pipe"], reads, cfg, 4096)
+        main_shapes, chain_fold = phase_main_shapes(full["pipe"], reads,
+                                                    cfg, 4096)
         lap("7 step vs plain")
         graph = phase_graph(full, reads, cfg, device)
         lap("16 graph")
@@ -1974,19 +2394,28 @@ def main() -> int:
     # main_ms: per launch at each row count the gpu-full step sends, and
     # edit_sc's at each row count of the stage-2 waves
     main_shapes.update(s2["shapes"])
+    main_shapes.update(chain_fold)
     main_ms = {name: {str(r["rows"]): r["ms"] for r in main_shapes[name]}
                for name in REPLACES}
+    # the chain DP and the fold: ms, plain ms and bound at the main path's
+    # recorded inputs (their largest row count)
+    for name in SOURCES:
+        kern[name] = max(chain_fold[name], key=lambda r: r["rows"])
+    kern["chain_dp"]["buckets"] = buckets
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        {"name": name, "route": "cuda",
+         "source": SOURCES.get(name, KERNEL_SOURCE),
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": None,
-         "chain_floor_ms": kern[name]["chain_floor_ms"],
+         "chain_floor_ms": kern[name].get("chain_floor_ms"),
          "main_ms": main_ms[name],
          "launches_contigs": mini["gpu-full"]["launches"][name],
-         "launches_mesh": mesh_launches[name]} for name in REPLACES]}))
+         "launches_mesh": mesh_launches[name],
+         **({"buckets": kern[name]["buckets"]} if "buckets" in kern[name]
+            else {})} for name in REPLACES]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

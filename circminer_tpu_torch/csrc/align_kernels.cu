@@ -815,4 +815,9 @@ int cm_one_side(const void* s, const void* t, const void* n, const void* m,
                    (int32_t*)out, B, L, w);
 }
 
+// The CUDA runtime's text for an error code a cm_* function returned.
+const char* cm_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
 }  // extern "C"

@@ -14,14 +14,16 @@ reference; this module holds the dense device formulation:
     the reference's low-memory form for very large entry tables);
   * ``_chain_dp_core_lanes``: the transition DP over lists (chain.cpp:73-301)
     with the gap, maxIntron and junction gates (chain.cpp:28-64), keeping
-    the first maximum as the backpointer;
-  * ``chain_batch_device`` = prelude + core; ``gather_and_chain_device`` =
-    seed gather + chain DP.
+    the first maximum as the backpointer: the plain version of the
+    ``chain_dp`` kernel (csrc/chain_dp.cu), which ``chain_dp`` launches on
+    a CUDA tensor;
+  * ``chain_batch_device`` = prelude + ``chain_dp``;
+    ``gather_and_chain_device`` = seed gather + chain DP.
 
 Scores are int32 in 0.1 units (score10 = 10 * score): alpha10 = 2e5 * k per
 link, beta10 = |dist_t - dist_r|.  Tensors of the core keep the row
-dimension b last ([S, b], [S, S, b]) as the reference does.  Plain torch:
-the reference lowers this through XLA, with no Pallas twin.
+dimension b last ([S, b], [S, S, b]) as the reference does.  The reference
+lowers the core through XLA (a Pallas kernel until its round 4).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from torch.profiler import record_function
 
 from ..annotation.device import near_border_bit
+from . import _ext
 from .seed import gather_seeds_device
 
 _i32 = torch.int32
@@ -59,11 +62,57 @@ def chain_batch_device(pos, cnt, qpos, seq_len,
                              iv_nseg, seg_end, seg_next, k=k, max_ed=max_ed,
                              seg_pad=seg_pad, seg_compact=seg_compact)
     with record_function("cm.chain_dp"):
-        dpl, bkl = _chain_dp_core_lanes(*pre, NL=NL, S=S, k=k,
-                                        max_ed=max_ed, max_intron=max_intron)
+        return chain_dp(*pre, NL=NL, S=S, k=k, max_ed=max_ed,
+                        max_intron=max_intron)
+
+
+def chain_dp(posf, qposf, validf, ub, mee, e1, sep_c, snp_c, pv_c, *,
+             NL: int, S: int, k: int, max_ed: int, max_intron: int):
+    """The chain DP of the prelude's tensors: (dp10, back) int32 [b, NL, S].
+    On a CPU tensor its plain version (``_chain_dp_core_lanes``); on a CUDA
+    tensor the ``chain_dp`` kernel, or a raise (the kernel refuses rows
+    whose lists outgrow a block's shared memory)."""
+    if not posf.is_cuda:
+        return _chain_dp_plain(posf, qposf, validf, ub, mee, e1, sep_c,
+                               snp_c, pv_c, NL=NL, S=S, k=k, max_ed=max_ed,
+                               max_intron=max_intron)
+    b = posf.shape[0]
+    dp = torch.empty((b, NL, S), dtype=_i32, device=posf.device)
+    back = torch.empty_like(dp)
+    if b == 0 or NL * S == 0:
+        return dp, back
+    _ext.launch_tensors(
+        "chain_dp", chain_dp_args(posf, qposf, validf, ub, mee, e1, sep_c,
+                                  snp_c, pv_c, dp, back, NL=NL, S=S),
+        (b, NL, S, sep_c.shape[1], k, max_ed, max_intron))
+    return dp, back
+
+
+def _chain_dp_plain(*pre, NL: int, S: int, k: int, max_ed: int,
+                    max_intron: int):
+    """The plain version of ``chain_dp``: ``_chain_dp_core_lanes``, its
+    per-list [S, b] pieces stacked into [b, NL, S]."""
+    dpl, bkl = _chain_dp_core_lanes(*pre, NL=NL, S=S, k=k, max_ed=max_ed,
+                                    max_intron=max_intron)
     dp = torch.stack(dpl, dim=0).permute(2, 0, 1).contiguous()
     back = torch.stack(bkl, dim=0).permute(2, 0, 1).contiguous()
     return dp, back
+
+
+def chain_dp_args(posf, qposf, validf, ub, mee, e1, sep_c, snp_c, pv_c, dp,
+                  back, *, NL: int, S: int):
+    """The (tensor, dtype, shape) arguments of the ``chain_dp`` kernel, in
+    its order.  The kernel reads the [M, P, b] junction tables in [b, M, P]
+    order, the order of the prelude's gathers, so their permuted views are
+    contiguous and nothing is copied."""
+    b, M = posf.shape[0], NL * S
+    P = sep_c.shape[1]
+    i32, u8 = _i32, torch.bool
+    rows = [(x, i32, (b, M)) for x in (posf, qposf)] + [(validf, u8, (b, M))]
+    rows += [(x, i32, (b, M)) for x in (ub, mee, e1)]
+    rows += [(x.permute(2, 0, 1).contiguous(), dt, (b, M, P))
+             for x, dt in ((sep_c, i32), (snp_c, i32), (pv_c, u8))]
+    return rows + [(x, i32, (b, NL, S)) for x in (dp, back)]
 
 
 def _chain_dp_core_lanes(posf, qposf, validf, ub, mee, e1, sep_c, snp_c,
@@ -239,21 +288,22 @@ def _chain_prelude(pos, cnt, qpos, seq_len,
     ol_iv = torch.where(nb & found & exonic, iv_c.to(_i32), -1)
 
     # ---- per-cell constants + pre-gathered junction tables [M, P, b] ----
+    # (views of [B, M, P] gathers: the chain_dp kernel reads that order)
     e1 = posf + k - 1
     has_iv = ol_iv >= 0
     iv_cc = torch.clamp(ol_iv, 0, n_iv - 1).long()
     nseg_cc = iv_nseg[iv_cc]                                     # [B, M]
     if seg_compact:
-        sep_T = torch.stack([seg_end[:, p][iv_cc].T
-                             for p in range(seg_pad)], dim=1)    # [M, P, b]
-        snp_T = torch.stack([seg_next[:, p][iv_cc].T
-                             for p in range(seg_pad)], dim=1)
+        sep = torch.stack([seg_end[:, p][iv_cc] for p in range(seg_pad)],
+                          dim=-1)                                # [B, M, P]
+        snp = torch.stack([seg_next[:, p][iv_cc] for p in range(seg_pad)],
+                          dim=-1)
     else:
-        sep_T = seg_end[iv_cc].permute(1, 2, 0)                  # [M, P, b]
-        snp_T = seg_next[iv_cc].permute(1, 2, 0)
-    pv_T = (has_iv.T[:, None, :]
-            & (torch.arange(seg_pad, dtype=_i32, device=dev)[None, :, None]
-               < nseg_cc.T[:, None, :]))                         # [M, P, b]
+        sep, snp = seg_end[iv_cc], seg_next[iv_cc]               # [B, M, P]
+    pv = (has_iv[:, :, None]
+          & (torch.arange(seg_pad, dtype=_i32, device=dev)[None, None, :]
+             < nseg_cc[:, :, None]))                             # [B, M, P]
+    sep_T, snp_T, pv_T = (x.permute(1, 2, 0) for x in (sep, snp, pv))
     return posf, qposf, validf, ub, mee, e1, sep_T, snp_T, pv_T
 
 

@@ -41,6 +41,7 @@ from ..config import (CONCRD, DISCRD, CHIORF, CHIBSJ, CHI2BSJ, CONGEN,
                       CHIFUS, CONGNM, OEA2, CANDID, OEANCH, ORPHAN,
                       NOPROC_MANYHIT, NOPROC_NOMATCH, INF, MAXDISCRDTLEN,
                       LARIAT2BEGTH)
+from . import _ext
 from .align_device import one_side_batch
 from .pallas_align import POS, xdrop_batch
 
@@ -1208,6 +1209,140 @@ def _pair_precompute(ad, fa, lmm, rmm, need, *, W_MAX, CT_POOL):
 MM_USED = ("spos", "epos", "qspos", "qepos", "mlen", "led", "med", "red",
            "dir", "tfinal", "iv_s", "iv_e", "l_ok", "r_ok")
 
+# the mr fold's pair steps (``mr_pair_fold``): the per-pair fields of both
+# orientations, packed int32 [B, 2, P_MAX, len(PAIR_KEYS)] (bools as 0 / 1)
+# once per finish; each orientation's own pair tables, int32 [B, P_MAX,
+# len(ORIENT_KEYS)]; the carries out, int32 [B, len(FOLD_AUX)].  The enums
+# of csrc/mr_fold.cu follow these orders.
+PRE_KEYS = ("se", "sg_iv", "bsj_hit", "ct_tl", "ct_inn", "ct_df")
+PAIR_KEYS = (tuple("l_" + kk for kk in MM_USED)
+             + tuple("r_" + kk for kk in MM_USED) + PRE_KEYS
+             + ("success", "fwd_left"))
+_PAIR_BOOL = {"l_l_ok", "l_r_ok", "r_l_ok", "r_r_ok", "se", "sg_iv",
+              "bsj_hit", "ct_df", "success", "fwd_left"}
+ORIENT_KEYS = ("act", "mp_type", "chr", "shift")
+FOLD_AUX = ("stopped", "min1", "min2", "r1g", "r2g", "defer_o")
+
+
+def _at_o(arr, o_idx):
+    """arr [B, 2, ...] -> [B, ...] at each read's orientation."""
+    return _along(arr, o_idx[:, None], 1)[:, 0]
+
+
+def _pack_pairs(lmm, rmm, pre_all, success, fwd_left):
+    """Every per-pair field the fold reads, int32 [B, 2, P_MAX, NPF] in
+    PAIR_KEYS order."""
+    cols = ([lmm[kk] for kk in MM_USED] + [rmm[kk] for kk in MM_USED]
+            + [pre_all[kk] for kk in PRE_KEYS] + [success, fwd_left])
+    return torch.stack([c.to(_i32) for c in cols], dim=-1)
+
+
+def mr_pair_fold(mr, pairs, o_t, orient, live, stopped, *, max_tlen: int,
+                 contig_num: int, scan_level: int):
+    """The P_MAX pair steps of one orientation of the mr fold (the
+    reference's ``pair_body``, circminer_tpu/ops/device_full.py:1510).
+
+    mr int32 [B, MRF]; pairs int32 [B, 2, P_MAX, NPF] (``_pack_pairs``);
+    o_t int32 [B]; orient int32 [B, P_MAX, NOF] (ORIENT_KEYS); live,
+    stopped bool [B].  Returns (mr int32 [B, MRF], aux int32 [B, 6] in
+    FOLD_AUX order).  On a CPU tensor its plain version
+    (``_mr_pair_fold_plain``); on a CUDA tensor the ``mr_pair_fold``
+    kernel (csrc/mr_fold.cu), or a raise."""
+    kw = dict(max_tlen=max_tlen, contig_num=contig_num,
+              scan_level=scan_level)
+    if not mr.is_cuda:
+        return _mr_pair_fold_plain(mr, pairs, o_t, orient, live, stopped,
+                                   **kw)
+    B, _, P, _ = pairs.shape
+    mr_out = torch.empty((B, MRF), dtype=_i32, device=mr.device)
+    aux = torch.empty((B, len(FOLD_AUX)), dtype=_i32, device=mr.device)
+    if B == 0:
+        return mr_out, aux
+    _ext.launch_tensors(
+        "mr_pair_fold", mr_pair_fold_args(mr, pairs, o_t, orient, live,
+                                          stopped, mr_out, aux),
+        (B, P, max_tlen, contig_num, scan_level))
+    return mr_out, aux
+
+
+def mr_pair_fold_args(mr, pairs, o_t, orient, live, stopped, mr_out, aux):
+    """The (tensor, dtype, shape) arguments of the ``mr_pair_fold`` kernel,
+    in its order."""
+    B, _, P, _ = pairs.shape
+    i32 = _i32
+    return [(mr, i32, (B, MRF)), (pairs, i32, (B, 2, P, len(PAIR_KEYS))),
+            (o_t, i32, (B,)), (orient, i32, (B, P, len(ORIENT_KEYS))),
+            (live, torch.bool, (B,)), (stopped, torch.bool, (B,)),
+            (mr_out, i32, (B, MRF)), (aux, i32, (B, len(FOLD_AUX)))]
+
+
+def _mr_pair_fold_plain(mr_in, pairs, o_t, orient, live, stopped, *,
+                        max_tlen, contig_num, scan_level):
+    """The plain version of ``mr_pair_fold``: the fold's loop over pairs as
+    torch ops, reading pair p of each read's orientation as row p."""
+    B, _, P_MAX, _ = pairs.shape
+    dev = mr_in.device
+    at = _at_o(pairs, o_t)                                 # [B, P, NPF]
+    col = {kk: (at[..., i] != 0) if kk in _PAIR_BOOL else at[..., i]
+           for i, kk in enumerate(PAIR_KEYS)}
+    mr = {kk: mr_in[:, i] for i, kk in enumerate(MR_KEYS)}
+    fl = col["fwd_left"]
+    r1_fwd_flag = o_t == 0
+    r1_sm = torch.where(fl, r1_fwd_flag[:, None], ~r1_fwd_flag[:, None])
+
+    def const(v):
+        return torch.full((B,), v, dtype=_i32, device=dev)
+
+    # every per-pair tensor as [P, B]: the fold reads pair p as row p
+    lmm_T = {kk: col["l_" + kk].T for kk in MM_USED}
+    rmm_T = {kk: col["r_" + kk].T for kk in MM_USED}
+    pre_T = {kk: col[kk].T for kk in PRE_KEYS}
+    fl_T, act_T = fl.T, (orient[..., 0] != 0).T
+    succ_T = col["success"].T
+    mp_T, chr_T, sh_T, rs_T = (orient[..., 1].T, orient[..., 2].T,
+                               orient[..., 3].T, r1_sm.T)
+
+    min1 = const(ORPHAN)
+    min2 = const(ORPHAN)
+    r1g = torch.zeros((B,), dtype=torch.bool, device=dev)
+    r2g = torch.zeros((B,), dtype=torch.bool, device=dev)
+    defer_o = torch.zeros((B,), dtype=torch.bool, device=dev)
+    for p in range(P_MAX):
+        lm_p = {kk: v[p] for kk, v in lmm_T.items()}
+        rm_p = {kk: v[p] for kk, v in rmm_T.items()}
+        pre_p = {kk: v[p] for kk, v in pre_T.items()}
+        flp = fl_T[p]
+        pact = act_T[p] & live & ~stopped
+        succ = pact & succ_T[p]
+        r1t = torch.where(flp, lm_p["tfinal"], rm_p["tfinal"])
+        r2t = torch.where(flp, rm_p["tfinal"], lm_p["tfinal"])
+        cc = succ & flp & (r1t == CONCRD) & (r2t == CONCRD)
+        bsj_m = succ & (((r1t == CANDID) & (r2t == CONCRD))
+                        | ((r1t == CONCRD) & (r2t == CANDID)))
+        b2_m = succ & (r1t == CANDID) & (r2t == CANDID)
+        chim = succ & ~flp & (r1t == CONCRD) & (r2t == CONCRD)
+        rule = (lm_p, rm_p, pre_p, chr_T[p], sh_T[p], rs_T[p])
+        mr, df_ce = _conc_expl(
+            mr, lm_p, rm_p, pre_p, chr_T[p], sh_T[p], rs_T[p], mp_T[p],
+            cc, max_tlen=max_tlen, contig_num=contig_num)
+        defer_o = defer_o | (cc & df_ce)
+        if scan_level == 0:
+            stopped = stopped | (cc & (mr["type"] == CONCRD))
+        mr = _check_chimeric(mr, *rule, chim, contig_num=contig_num)
+        mr = _check_bsj(mr, *rule, bsj_m, contig_num=contig_num)
+        mr = _check_2bsj(mr, *rule, b2_m, contig_num=contig_num)
+        min1 = torch.where(pact, torch.minimum(min1, r1t), min1)
+        min2 = torch.where(pact, torch.minimum(min2, r2t), min2)
+        on1 = torch.where(flp, lm_p["iv_s"], rm_p["iv_s"]) >= 0
+        on1 |= torch.where(flp, lm_p["iv_e"], rm_p["iv_e"]) >= 0
+        on2 = torch.where(flp, rm_p["iv_s"], lm_p["iv_s"]) >= 0
+        on2 |= torch.where(flp, rm_p["iv_e"], lm_p["iv_e"]) >= 0
+        r1g = torch.where(pact, succ & on1, r1g)
+        r2g = torch.where(pact, succ & on2, r2g)
+    aux = torch.stack([x.to(_i32) for x in (stopped, min1, min2, r1g, r2g,
+                                            defer_o)], dim=1)
+    return torch.stack([mr[kk].to(_i32) for kk in MR_KEYS], dim=1), aux
+
 
 def device_full_finish(seqs, lens, hh, rp, qp, cl, sc10, cn, inc, mr_in,
                        genome, ad, fa, *, k, max_ed, max_sc, band,
@@ -1317,10 +1452,6 @@ def device_full_finish(seqs, lens, hh, rp, qp, cl, sc10, cn, inc, mr_in,
                                  & (cn_r2 > 0)).to(_i32)     # f64 tie
     first_A = sA >= sB
 
-    def at_o(arr, o_idx):
-        """arr [B, 2, ...] -> [B, ...] at each read's orientation."""
-        return _along(arr, o_idx[:, None], 1)[:, 0]
-
     stopped = torch.zeros((B,), dtype=torch.bool, device=dev)
     # pair-pure relations + pooled calc_tlen over the [B, 2, P] pairs
     ct_need = pvalid & success & (lmm["iv_e"] >= 0) & (rmm["iv_s"] >= 0)
@@ -1334,101 +1465,66 @@ def device_full_finish(seqs, lens, hh, rp, qp, cl, sc10, cn, inc, mr_in,
     with record_function("cm.mr_fold"):
         frows, vrows = _mate_rows(dev)
         ci = torch.arange(KB1, device=dev)[None, :]
+        pairs = _pack_pairs(lmm, rmm, pre_all, success, fwd_left)
         for t in (0, 1):
             o_t = torch.where(first_A, t, 1 - t)
-            r1_fwd_flag = o_t == 0
             saved = mr["type"]
             live = ~done_read & ~stopped
 
-            pv = at_o(pvalid, o_t)
-            same_tr = at_o(st2["same_tr"], o_t)
-            fiv, riv = at_o(st2["fiv"], o_t), at_o(st2["riv"], o_t)
-            fl = at_o(fwd_left, o_t)
+            pv = _at_o(pvalid, o_t)
+            same_tr = _at_o(st2["same_tr"], o_t)
+            fiv, riv = _at_o(st2["fiv"], o_t), _at_o(st2["riv"], o_t)
 
             # exact pair gate (filter.cpp:485-551) with this saved_type
             c1 = ((saved > CONGEN) if scan_level == 0
                   else (saved >= CONGEN))[:, None]
-            sg1 = ~same_tr & (fiv >= 0) & c1 & at_o(st2["sgf"], o_t)
+            sg1 = ~same_tr & (fiv >= 0) & c1 & _at_o(st2["sgf"], o_t)
             sg2 = ~sg1 & (riv >= 0) & (saved >= CONGEN)[:, None] \
-                & at_o(st2["sgr"], o_t)
+                & _at_o(st2["sgr"], o_t)
             same_gen = sg1 | sg2
             gate = same_tr | same_gen | (
-                (at_o(st2["tlen_g"], o_t) <= MAXDISCRDTLEN)
+                (_at_o(st2["tlen_g"], o_t) <= MAXDISCRDTLEN)
                 & (saved >= CONGNM)[:, None])
             mp_type = torch.where(same_tr, 0, torch.where(same_gen, 1, 2))
 
             chr_idx = torch.clamp(_bisect_le(fa.shift_bounds,
-                                             at_o(lmm["spos"], o_t)),
+                                             _at_o(lmm["spos"], o_t)),
                                   0, fa.shift_vals.shape[0] - 1)
             shift = fa.shift_vals[chr_idx.long()]
-            r1_sm = torch.where(fl, r1_fwd_flag[:, None], ~r1_fwd_flag[:, None])
-
-            # every per-pair tensor as [P, B]: the fold reads pair p as row p
-            lmm_T = {kk: at_o(lmm[kk], o_t).T for kk in MM_USED}
-            rmm_T = {kk: at_o(rmm[kk], o_t).T for kk in MM_USED}
-            pre_T = {kk: at_o(v, o_t).T for kk, v in pre_all.items()}
-            fl_T, act_T = fl.T, (pv & gate).T
-            succ_T = at_o(success, o_t).T
-            mp_T, chr_T, sh_T, rs_T = mp_type.T, chr_idx.T, shift.T, r1_sm.T
-
-            min1 = const(ORPHAN)
-            min2 = const(ORPHAN)
-            r1g = torch.zeros((B,), dtype=torch.bool, device=dev)
-            r2g = torch.zeros((B,), dtype=torch.bool, device=dev)
-            defer_o = torch.zeros((B,), dtype=torch.bool, device=dev)
-            for p in range(P_MAX):
-                lm_p = {kk: v[p] for kk, v in lmm_T.items()}
-                rm_p = {kk: v[p] for kk, v in rmm_T.items()}
-                pre_p = {kk: v[p] for kk, v in pre_T.items()}
-                flp = fl_T[p]
-                pact = act_T[p] & live & ~stopped
-                succ = pact & succ_T[p]
-                r1t = torch.where(flp, lm_p["tfinal"], rm_p["tfinal"])
-                r2t = torch.where(flp, rm_p["tfinal"], lm_p["tfinal"])
-                cc = succ & flp & (r1t == CONCRD) & (r2t == CONCRD)
-                bsj_m = succ & (((r1t == CANDID) & (r2t == CONCRD))
-                                | ((r1t == CONCRD) & (r2t == CANDID)))
-                b2_m = succ & (r1t == CANDID) & (r2t == CANDID)
-                chim = succ & ~flp & (r1t == CONCRD) & (r2t == CONCRD)
-                rule = (lm_p, rm_p, pre_p, chr_T[p], sh_T[p], rs_T[p])
-                mr, df_ce = _conc_expl(
-                    mr, lm_p, rm_p, pre_p, chr_T[p], sh_T[p], rs_T[p], mp_T[p],
-                    cc, max_tlen=max_tlen, contig_num=contig_num)
-                defer_o = defer_o | (cc & df_ce)
-                if scan_level == 0:
-                    stopped = stopped | (cc & (mr["type"] == CONCRD))
-                mr = _check_chimeric(mr, *rule, chim, contig_num=contig_num)
-                mr = _check_bsj(mr, *rule, bsj_m, contig_num=contig_num)
-                mr = _check_2bsj(mr, *rule, b2_m, contig_num=contig_num)
-                min1 = torch.where(pact, torch.minimum(min1, r1t), min1)
-                min2 = torch.where(pact, torch.minimum(min2, r2t), min2)
-                on1 = torch.where(flp, lm_p["iv_s"], rm_p["iv_s"]) >= 0
-                on1 |= torch.where(flp, lm_p["iv_e"], rm_p["iv_e"]) >= 0
-                on2 = torch.where(flp, rm_p["iv_s"], lm_p["iv_s"]) >= 0
-                on2 |= torch.where(flp, rm_p["iv_e"], lm_p["iv_e"]) >= 0
-                r1g = torch.where(pact, succ & on1, r1g)
-                r2g = torch.where(pact, succ & on2, r2g)
+            orient = torch.stack([x.to(_i32) for x in (
+                pv & gate, mp_type, chr_idx, shift)], dim=-1)
+            mr_t, aux = mr_pair_fold(
+                torch.stack([mr[kk].to(_i32) for kk in MR_KEYS], dim=1),
+                pairs, o_t.to(_i32), orient, live, stopped,
+                max_tlen=max_tlen, contig_num=contig_num,
+                scan_level=scan_level)
+            mr = {kk: mr_t[:, i] for i, kk in enumerate(MR_KEYS)}
+            stopped, r1g, r2g, defer_o = (aux[:, FOLD_AUX.index(kk)] != 0
+                                          for kk in ("stopped", "r1g", "r2g",
+                                                     "defer_o"))
+            min1 = aux[:, FOLD_AUX.index("min1")]
+            min2 = aux[:, FOLD_AUX.index("min2")]
             defer = defer | DEF_TLENWALK * defer_o.to(_i32)
 
             # ---- leftover single-chain extension (filter.cpp:356-394) ----
             do_lo = live & ~stopped & ~(mr["type"] <= CHI2BSJ)
             frow, vrow = frows[o_t.long()], vrows[o_t.long()]
             # exact paired flags over the full grid with this saved_type
-            g_tr = at_o(st2["grid_same_tr"], o_t)
-            gg_sg1 = ~g_tr & c1[..., None] & at_o(st2["grid_sgf"], o_t)
+            g_tr = _at_o(st2["grid_same_tr"], o_t)
+            gg_sg1 = ~g_tr & c1[..., None] & _at_o(st2["grid_sgf"], o_t)
             gg_sg2 = ~gg_sg1 & (saved >= CONGEN)[:, None, None] \
-                & at_o(st2["grid_sgr"], o_t)
-            gg = (at_o(st2["grid_fvalid"], o_t) & at_o(st2["grid_rvalid"], o_t)
-                  ) & (g_tr | gg_sg1 | gg_sg2 | (
-                      (at_o(st2["grid_tlen"], o_t) <= MAXDISCRDTLEN)
+                & _at_o(st2["grid_sgr"], o_t)
+            gg = (_at_o(st2["grid_fvalid"], o_t)
+                  & _at_o(st2["grid_rvalid"], o_t)) & (g_tr | gg_sg1 | gg_sg2 | (
+                      (_at_o(st2["grid_tlen"], o_t) <= MAXDISCRDTLEN)
                       & (saved >= CONGNM)[:, None, None]))
             f_paired = gg.any(dim=2)                              # [B, KB1]
             r_paired = gg.any(dim=1)
 
-            lo_ret_f, lo_ret_v = at_o(lo_ret, frow), at_o(lo_ret, vrow)
-            lo_gen_f, lo_gen_v = at_o(lo_genic, frow), at_o(lo_genic, vrow)
-            cnt_f = at_o(cn4, frow)
-            cnt_v = at_o(cn4, vrow)
+            lo_ret_f, lo_ret_v = _at_o(lo_ret, frow), _at_o(lo_ret, vrow)
+            lo_gen_f, lo_gen_v = _at_o(lo_genic, frow), _at_o(lo_genic, vrow)
+            cnt_f = _at_o(cn4, frow)
+            cnt_v = _at_o(cn4, vrow)
             un_f = do_lo[:, None] & (min1 != CONCRD)[:, None] \
                 & (ci < cnt_f[:, None]) & ~f_paired
             un_v = do_lo[:, None] & (min2 != CONCRD)[:, None] \

@@ -220,6 +220,25 @@ def test_chain_prelude_forms_are_bit_equal(world, seeds):
         assert torch.equal(a, b)
 
 
+def test_chain_dp_reads_the_prelude_tables_in_place(world, seeds):
+    """The chain_dp kernel's junction-table arguments are the prelude's own
+    storage in both forms: its wrapper copies nothing."""
+    cfg = world[0]
+    ad = seeds["tad"]
+    args = [_t(a) for a in _chain_inputs(world, seeds)] + [
+        ad.nb_bits, ad.iv_spos, ad.iv_epos, ad.iv_max_end, ad.iv_min_end,
+        ad.iv_max_next, ad.iv_nseg, ad.seg_end, ad.seg_next]
+    kw = dict(k=cfg.kmer, max_ed=cfg.max_ed, seg_pad=ad.seg_pad)
+    NL, S = args[0].shape[1:]
+    for seg_compact in (False, True):
+        pre = tchain._chain_prelude(*args, seg_compact=seg_compact, **kw)
+        out = torch.empty((pre[0].shape[0], NL, S), dtype=torch.int32)
+        kargs = tchain.chain_dp_args(*pre, out, out, NL=NL, S=S)
+        assert len(kargs) == len(pre) + 2
+        for (x, _, _), y in zip(kargs, pre):
+            assert x.data_ptr() == y.data_ptr(), seg_compact
+
+
 def _extract_inputs(world, seeds, jax_chain):
     pos, cnt, qpos, _ = _chain_inputs(world, seeds)
     dp, back = jax_chain

@@ -1,13 +1,14 @@
 """The gpu-full step as one captured CUDA graph (``ops/step_graph.py``).
 
 On the CPU: a sync audit of ``device_full_step`` (one step of
-tests/test_torch_full.py's tiny world with the four kernel wrappers stubbed
+tests/test_torch_full.py's tiny world with the six kernel wrappers stubbed
 to their output shapes, under a TorchDispatchMode: no op that makes the
 host wait for the card, no boolean-mask indexing, every lifted scalar from
-a named site, and each kernel wrapper called as often as a replay counts
-it); the runner's refusal of the CPU; its key; the tracing flag the
-pipeline reads; and the CPU pipeline's eager plain step, bit-equal to a
-direct call of the step.
+a named site, each kernel wrapper called as often as a replay counts it
+and handed the dtypes and shapes its kernel takes, and the chain DP's and
+the pair steps' spans free of unrolled loops); the runner's refusal of
+the CPU; its key; the tracing flag the pipeline reads; and the CPU
+pipeline's eager plain step, bit-equal to a direct call of the step.
 
 ``cuda``-marked (skipped without a card): replays bit-equal to the eager
 step on three batches other than the capture batch (one short and padded),
@@ -62,7 +63,8 @@ LIFT_SITES = {
         ("x_left", (BATCH, 4, 7, 2, 2), torch.bool),
 }
 # kernel launches of one step (PERF.md's per-step counts)
-PER_STEP = {"xdrop": 5, "edit_end": 4, "one_side": 1, "edit_sc": 0}
+PER_STEP = {"xdrop": 5, "edit_end": 4, "one_side": 1, "edit_sc": 0,
+            "chain_dp": 1, "mr_pair_fold": 2}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -125,27 +127,49 @@ class Audit(TorchDispatchMode):
         return func(*args, **kwargs)
 
 
+def _kernel_args_ok(args):
+    """Each (tensor, dtype, shape) the launcher would check, less the
+    device: what the step hands the kernel is what it takes."""
+    for x, dtype, shape in args:
+        assert x.dtype == dtype and tuple(x.shape) == tuple(shape) \
+            and x.is_contiguous(), (x.dtype, tuple(x.shape), dtype, shape)
+
+
 def _stubs(calls):
-    """The four kernel wrappers as they are called from the step, each
-    returning zeros of its output shape and counting its calls."""
+    """The six kernel wrappers as they are called from the step, each
+    returning zeros of its output shape and counting its calls; the chain
+    DP's and the fold's check the arguments their kernels would get."""
     def out(name, s, k):
         calls[name] += 1
         z = torch.zeros(s.shape[0], dtype=torch.int32, device=s.device)
         return z if k == 1 else (z,) * k
+
+    def chain_dp(*pre, NL, S, **kw):
+        calls["chain_dp"] += 1
+        dp = torch.zeros((pre[0].shape[0], NL, S), dtype=torch.int32)
+        _kernel_args_ok(tchain.chain_dp_args(*pre, dp, dp, NL=NL, S=S))
+        return dp, dp
+
+    def mr_pair_fold(mr, *args, **kw):
+        calls["mr_pair_fold"] += 1
+        aux = torch.zeros((mr.shape[0], len(tfull.FOLD_AUX)),
+                          dtype=torch.int32)
+        _kernel_args_ok(tfull.mr_pair_fold_args(mr, *args, mr, aux))
+        return mr, aux
 
     return {
         (tfull, "one_side_batch"): lambda s, *a, **kw: out("one_side", s, 1),
         (tfull, "xdrop_batch"): lambda s, *a, **kw: out("xdrop", s, 3),
         (twalk, "xdrop_batch"): lambda s, *a, **kw: out("xdrop", s, 3),
         (twalk, "edit_end_batch"): lambda s, *a, **kw: out("edit_end", s, 2),
+        (tchain, "chain_dp"): chain_dp,
+        (tfull, "mr_pair_fold"): mr_pair_fold,
     }
 
 
-def test_fused_step_never_waits_for_the_device(world, monkeypatch):
-    """One step of the tiny world under a TorchDispatchMode: none of the
-    ops that read a device value back to the host, no boolean-mask
-    indexing, every lifted scalar from a named site, and the kernels
-    launched 5 (xdrop), 4 (edit_end) and 1 (one_side) times."""
+def _audited_step(world, monkeypatch, **over):
+    """One step of the tiny world with the kernel wrappers stubbed, under
+    the Audit; returns (blob, audit, calls)."""
     calls = Counter()
     for (mod, name), fn in _stubs(calls).items():
         monkeypatch.setattr(mod, name, fn)
@@ -160,7 +184,17 @@ def test_fused_step_never_waits_for_the_device(world, monkeypatch):
             *args, st.entry_hv, st.entry_checksum, st.entry_pos,
             world.tgenome, world.tad, world.tfa, st.entry_prefix,
             contig_num=0, prefix_shift=st.prefix_shift,
-            prefix_iters=st.prefix_iters, **world.statics)
+            prefix_iters=st.prefix_iters, **{**world.statics, **over})
+    return blob, audit, calls
+
+
+def test_fused_step_never_waits_for_the_device(world, monkeypatch):
+    """One step of the tiny world under a TorchDispatchMode: none of the
+    ops that read a device value back to the host, no boolean-mask
+    indexing, every lifted scalar from a named site, and the kernels
+    launched 5 (xdrop), 4 (edit_end), 1 (one_side), 1 (chain_dp) and 2
+    (mr_pair_fold) times."""
+    blob, audit, calls = _audited_step(world, monkeypatch)
     assert tuple(blob.shape) == (BATCH, tfull.MRF + 1)
     assert not audit.syncing, Counter(audit.syncing)
     assert not audit.mask_index, Counter(audit.mask_index)
@@ -171,6 +205,21 @@ def test_fused_step_never_waits_for_the_device(world, monkeypatch):
           f"ops per step; top {audit.ops.most_common(5)}; by innermost "
           f"span {audit.by_span.most_common()}")
     assert total > 10_000
+
+
+def test_chain_dp_and_pair_steps_are_one_kernel_each(world, monkeypatch):
+    """With the kernels stubbed, cm.chain_dp dispatches only a handful of
+    aten ops per step (the outputs and the stub), and cm.mr_fold as many
+    at twice the world's P_MAX: the card path unrolls neither loop."""
+    P = world.statics["P_MAX"]
+    by_p = {}
+    for p_max in (P, 2 * P):
+        _, audit, calls = _audited_step(world, monkeypatch, P_MAX=p_max)
+        assert calls["chain_dp"] == 1 and calls["mr_pair_fold"] == 2
+        by_p[p_max] = audit.by_span
+    assert by_p[P]["cm.chain_dp"] <= 8, by_p[P]["cm.chain_dp"]
+    assert 0 < by_p[P]["cm.mr_fold"] == by_p[2 * P]["cm.mr_fold"], \
+        (by_p[P]["cm.mr_fold"], by_p[2 * P]["cm.mr_fold"])
 
 
 def test_runner_refuses_the_cpu():
