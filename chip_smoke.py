@@ -20,7 +20,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      then the chain DP (chain_dp) and the mr fold's pair steps
      (mr_pair_fold) bit-equal to their plain versions over adversarial
      inputs: CHAIN_SWEEP (S = 16, 128, 500; NL = 2, 6, 15; P = 3, 16, 20)
-     and FOLD_SWEEP (at both scan_levels); and chain_dp timed beside its
+     and FOLD_SWEEP (at both scan_levels; read counts ragged against the
+     fold's 32-read blocks); and chain_dp timed beside its
      plain version and bound at gpu-chain's S = 128 and 500 buckets
      (CHAIN_BUCKETS, which no chr21 read fills);
   3. the seed lookup on the card against the host C++ NativeSeeder on one
@@ -106,7 +107,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      on 4,096-pair chr21 batches: one eager step under
      torch.cuda.set_sync_debug_mode("error") (its aten ops counted, its
      launches those the capture records), a capture on batch 0 (capture
-     and instantiation seconds, private pool bytes), four replays on
+     and instantiation seconds, private pool bytes beside the bytes of the
+     [b, M, P] junction tables that the chain DP reads by interval
+     instead), four replays on
      other batches (the last a short one, padded) each bit-equal to the
      eager step on the same batch, ms per step graph against eager (CUDA
      events, in turns), peak device memory, and the device-busy share and
@@ -535,11 +538,15 @@ def phase_kernels(device, B=1024, seed=7):
 
 def chain_dp_inputs(rng, b, NL, S, P, *, k=3, max_ed=2, max_intron=6,
                     span=40):
-    """Adversarial inputs of the chain DP (numpy, the prelude's shapes):
-    every value drawn from a window of ``span`` so that each gate, tie and
-    junction branch is taken often; ~40% of cells and ~10% of rows
-    invalid, repeated positions, minpos at exactly pi + max_intron, and ~5%
-    of rows near the int32 limit, where the sums wrap."""
+    """Adversarial inputs of the chain DP (numpy, the shapes of
+    ``_chain_cells`` and the annotation's tables): every value drawn from a
+    window of ``span`` so that each gate, tie and junction branch is taken
+    often; ~40% of cells and ~10% of rows invalid, repeated positions,
+    minpos at exactly pi + max_intron, and ~5% of rows near the int32
+    limit, where the sums wrap.  ~70% of cells have an interval of their
+    own, whose segment ends lie near the cell's e1; ~10% share one of a few
+    intervals; ~20% have none (ol_iv -1).  An interval's segments are the
+    prefix p < iv_nseg, repeated in part (several accept at once)."""
     import numpy as np
     M = NL * S
 
@@ -559,21 +566,45 @@ def chain_dp_inputs(rng, b, NL, S, P, *, k=3, max_ed=2, max_intron=6,
     mee = np.where(rng.random((b, M)) < 0.4, 0,
                    pos + r(0, 2 * k + 2, (b, M)))
     e1 = pos + k - 1
-    sep = e1.T[:, None, :] + r(-2, 6, (M, P, b))
-    snp = r(0, span, (M, P, b))
-    # repeated segments: several accept at once
-    rep = rng.random((M, 1, b)) < 0.5
-    sep[:, 1:] = np.where(rep, sep[:, :-1], sep[:, 1:])
-    snp[:, 1:] = np.where(rep, snp[:, :-1], snp[:, 1:])
-    snp[:, :, big] += 2 ** 31 - 2 * span
-    pv = rng.random((M, P, b)) < 0.5
+    # intervals: one per cell (0 .. b*M - 1), then n_sh shared ones
+    n_sh = max(1, b * M // 64)
+    u = rng.random((b, M))
+    ol_iv = np.where(u < 0.7, np.arange(b * M).reshape(b, M),
+                     np.where(u < 0.8, b * M + r(0, n_sh, (b, M)), -1))
+    owner = np.concatenate([e1.reshape(-1),
+                            e1.reshape(-1)[r(0, b * M, n_sh)]])
+    seg_end = owner[:, None] + r(-2, 6, (b * M + n_sh, P))
+    seg_next = r(0, span, (b * M + n_sh, P))
+    rep = rng.random((b * M + n_sh, 1)) < 0.5
+    seg_end[:, 1:] = np.where(rep, seg_end[:, :-1], seg_end[:, 1:])
+    seg_next[:, 1:] = np.where(rep, seg_next[:, :-1], seg_next[:, 1:])
+    big_iv = np.concatenate([np.repeat(big, M), np.zeros(n_sh, bool)])
+    seg_next[big_iv] += 2 ** 31 - 2 * span
+    iv_nseg = r(0, P + 1, b * M + n_sh)
 
     def i32(x):
         return x.astype(np.int32)     # wraps, as the device sums do
-    arrays = (i32(pos), i32(qp), valid, i32(ub), i32(mee), i32(e1), i32(sep),
-              i32(snp), pv)
+    arrays = (i32(pos), i32(qp), valid, i32(ub), i32(mee), i32(e1),
+              i32(ol_iv), i32(iv_nseg), i32(seg_end), i32(seg_next))
     return arrays, dict(NL=NL, S=S, k=k, max_ed=max_ed,
                         max_intron=max_intron)
+
+
+def chain_dp_warp_ties(rng, b, NL=3, S=600, P=4):
+    """chain_dp_inputs at S above 512, where a row's 16 warps take two cells
+    of a list each, with the last list's valid bits at two cells only: one
+    in the first cells of a later warp (32 .. 87), one among warp 0's
+    second cells (512 .. 543).  Their scores tie, so the list's first
+    maximum is the smaller cell, in the later warp."""
+    import numpy as np
+    arrays, kw = chain_dp_inputs(rng, b, NL, S, P)
+    valid = arrays[2].copy()
+    last = valid[:, (NL - 1) * S:]
+    last[:] = False
+    rows = np.arange(b)
+    last[rows, rng.integers(32, 88, b)] = True
+    last[rows, rng.integers(512, 544, b)] = True
+    return (*arrays[:2], valid, *arrays[3:]), kw
 
 
 def fold_inputs(rng, B, P, *, max_tlen=60):
@@ -642,8 +673,10 @@ CHAIN_SWEEP = ((16, 2, 16, 4096), (16, 6, 16, 4096), (16, 15, 16, 1024),
                (16, 6, 3, 257), (16, 6, 20, 257), (128, 2, 16, 256),
                (128, 6, 16, 256), (128, 15, 16, 64), (500, 2, 16, 64),
                (500, 6, 16, 32), (500, 15, 16, 8))
-# the fold's, (reads, P_MAX), each at scan_level 0 and 1
-FOLD_SWEEP = ((4096, 8), (33, 1), (1, 2), (4096, 2))
+# the fold's, (reads, P_MAX), each at scan_level 0 and 1: read counts
+# ragged against its 32-read blocks, P_MAX above its 8 staged steps
+FOLD_SWEEP = ((4096, 8), (33, 1), (1, 2), (4096, 2), (31, 8), (4097, 8),
+              (65, 9), (40, 16))
 # a floor of the fold's int32 operations per (read, pair step): its masks
 # and selects (~40) and the gates of its eight guarded updates (~60)
 FOLD_STEP_OPS = 100
@@ -684,7 +717,7 @@ def hold_outputs(name, kern, plain, tag=""):
 def phase_chain_fold(device, seed=11):
     """Phase 2 for the chain DP and the mr fold's pair steps: each kernel
     bit-equal to its plain version on the card over the adversarial
-    CHAIN_SWEEP and FOLD_SWEEP."""
+    CHAIN_SWEEP (and chain_dp_warp_ties) and FOLD_SWEEP."""
     import numpy as np
     import torch
     t0 = time.perf_counter()
@@ -694,6 +727,10 @@ def phase_chain_fold(device, seed=11):
         args = [torch.from_numpy(a).to(device) for a in arrs]
         hold_outputs("chain_dp", *chain_fold_calls("chain_dp", args, kw),
                      f" (S={S}, NL={NL}, P={P}, b={b})")
+    arrs, kw = chain_dp_warp_ties(np.random.default_rng(seed), 64)
+    args = [torch.from_numpy(a).to(device) for a in arrs]
+    hold_outputs("chain_dp", *chain_fold_calls("chain_dp", args, kw),
+                 " (ties across a row's warps, S=600)")
     t1 = time.perf_counter()
     for B, P in FOLD_SWEEP:
         for scan_level in (0, 1):
@@ -704,7 +741,8 @@ def phase_chain_fold(device, seed=11):
                 "mr_pair_fold", args, dict(kw, scan_level=scan_level)),
                 f" (B={B}, P={P}, scan_level={scan_level})")
     log(f"[kernels] chain_dp bit-equal to plain over (S, NL, P, rows) in "
-        f"{CHAIN_SWEEP} ({t1 - t0:.1f} s); mr_pair_fold over (B, P) in "
+        f"{CHAIN_SWEEP} and ties across a row's warps at S = 600 "
+        f"({t1 - t0:.1f} s); mr_pair_fold over (B, P) in "
         f"{FOLD_SWEEP} x scan_level 0, 1 ({time.perf_counter() - t1:.1f} "
         f"s); adversarial inputs (chain_dp_inputs, fold_inputs)")
 
@@ -743,33 +781,39 @@ def phase_chain_buckets(device, seed=13, NL=15, P=16):
     return out
 
 
-def chain_dp_work(posf, qposf, validf, ub, mee, e1, sep_c, snp_c, pv_c, *,
-                  NL, S, k, max_ed, max_intron):
-    """int32 operations the chain DP needs on these inputs (the plain
-    version's gates, counted): 3 per transition (row, cell of list l,
-    target of a later list: the candidate's add, the running maximum's
-    compare and select), 5 per target of a valid cell (minpos's compare
-    and select, the base gates), 8 per target past the base gates (the gap
-    distance and gate), 6 per junction segment scanned (those with pv_e,
-    up to the first that accepts, where the gap gate failed and pjv >
-    e1)."""
+def chain_dp_work(posf, qposf, validf, ub, mee, e1, ol_iv, iv_nseg, seg_end,
+                  seg_next, *, NL, S, k, max_ed, max_intron, **_):
+    """int32 operations the chain DP needs on these inputs, counted as the
+    kernel does its work: 2 per cell for its list's first maximum (compare
+    and select), 3 per invalid source cell (its candidate from the later
+    lists' maximum: add, compare, select); per valid source cell and later
+    list 2 per target for the maxIntron minimum, then 3 where that gate is
+    closed (the list's maximum) or else 8 per target (the candidate's add,
+    compare and select, the base gates), 8 per target past the base gates
+    (the gap distance and gate) and 6 per junction segment scanned (those
+    with pv_e, up to the first that accepts, where the gap gate failed and
+    pjv > e1)."""
     import torch
+    from circminer_tpu_torch.ops.chain_device import _junction_tables
+    sep_c, snp_c, pv_c = _junction_tables(ol_iv, iv_nseg, seg_end, seg_next,
+                                          seg_end.shape[1])
     b, P = posf.shape[0], sep_c.shape[1]
     pos_T, v_T, ub_T, mee_T, e1_T = posf.T, validf.T, ub.T, mee.T, e1.T
-    ops = 0
+    src = slice(0, (NL - 1) * S)
+    ops = 2 * b * NL * S + 3 * int((~v_T[src]).sum())
     for l in range(NL - 1):
         sl = slice(l * S, (l + 1) * S)
         pi, v_l = pos_T[sl][:, None, :], v_T[sl][:, None, :]
         ub_l, mee_l, e1_l = (x[sl][:, None, :] for x in (ub_T, mee_T, e1_T))
-        n_j = NL - 1 - l
-        ops += 3 * S * S * b * n_j + 5 * int(v_l.sum()) * S * n_j
         for j in range(l + 1, NL):
             pjv = pos_T[j * S:(j + 1) * S][None]
             rd = qposf[:, j * S] - qposf[:, l * S] - k
             minpos = torch.where(pjv > pi, pjv, 2 ** 31 - 1).amin(
                 dim=1, keepdim=True)
-            base = (v_l & (minpos <= pi + max_intron)
-                    & v_T[j * S:(j + 1) * S][None] & (pjv > pi)
+            gate = v_l & (minpos <= pi + max_intron)
+            ops += 2 * S * int(v_l.sum()) + 3 * int((v_l & ~gate).sum()) \
+                + 8 * S * int(gate.sum())
+            base = (gate & v_T[j * S:(j + 1) * S][None] & (pjv > pi)
                     & (pjv <= ub_l))
             gd = pjv - pi - k
             g_ok = ((mee_l == 0) | ((pjv + k - 1) <= mee_l)) \
@@ -786,22 +830,32 @@ def chain_dp_work(posf, qposf, validf, ub, mee, e1, sep_c, snp_c, pv_c, *,
     return ops
 
 
-def chain_dp_bytes(posf, qposf, validf, ub, mee, e1, sep_c, snp_c, pv_c, *,
-                   NL, S, **_):
-    """Bytes the chain DP must move on these inputs, counted as
-    chain_dp_work counts its operations: the position and valid bit of
-    every cell, one query offset per list and the two int32 outputs; and
-    only for a valid source cell (lists 0 .. NL-2) its three bounds and P
-    pv bits, sep where pv is set and snp where e12end = sep - e1 >= 0
-    too.  Nothing else enters the result."""
+def chain_dp_bytes(posf, qposf, validf, ub, mee, e1, ol_iv, iv_nseg,
+                   seg_end, seg_next, *, NL, S, **_):
+    """Bytes the chain DP must move on these inputs, each read once: the
+    position and valid bit of every cell, one query offset per list and
+    the two int32 outputs; for a valid source cell (lists 0 .. NL-2) its
+    three bounds and its interval; and for each interval that such a cell
+    reads, its segment count, the segment ends below the count and the
+    next-exon starts where some reading cell has e12end = sep - e1 >= 0.
+    Nothing else enters the result."""
+    import torch
     b, M = posf.shape
-    src = slice(0, (NL - 1) * S)
-    v = validf[:, src].T[:, None, :]                       # [M', 1, b]
-    pv = pv_c[src] & v
-    e12_ok = pv & (sep_c[src] - e1[:, src].T[:, None, :] >= 0)
+    P = seg_end.shape[1]
+    vs = validf[:, :(NL - 1) * S]
+    cell_iv = ol_iv[:, :(NL - 1) * S][vs]
+    cell_e1 = e1[:, :(NL - 1) * S][vs]
+    has = cell_iv >= 0
+    iv, e1v = cell_iv[has].long(), cell_e1[has]
+    pv = torch.arange(P, device=posf.device)[None, :] < iv_nseg[iv][:, None]
+    e_ok = pv & (seg_end[iv] - e1v[:, None] >= 0)
+    need = torch.zeros((seg_end.shape[0], P, 2), dtype=torch.int32,
+                       device=posf.device)
+    need[:, :, 0].index_put_((iv,), pv.to(torch.int32), accumulate=True)
+    need[:, :, 1].index_put_((iv,), e_ok.to(torch.int32), accumulate=True)
     return (b * M * (4 + 1) + b * NL * 4 + 2 * b * M * 4
-            + int(v.sum()) * (3 * 4 + pv_c.shape[1])
-            + 4 * int(pv.sum()) + 4 * int(e12_ok.sum()))
+            + int(vs.sum()) * 4 * 4 + 4 * int(torch.unique(iv).numel())
+            + 4 * int((need > 0).sum()))
 
 
 def chain_fold_bound(name, args, kw):
@@ -1068,9 +1122,15 @@ def phase_graph(full, reads, cfg, device, batch=4096):
         bad = (got != want).any(dim=1).nonzero()[:, 0]
         check(len(bad) == 0, f"replay on batch {i} differs from the eager "
               f"step on {len(bad)} rows, first {bad[:3].tolist()}")
+    rows, NL = 4 * batch, (cfg.max_read_len + cfg.kmer - 1) // cfg.kmer
+    cap, P = statics["cap"], st.anno.seg_pad
+    tables = rows * NL * cap * P * (4 + 4 + 1)
     log(f"[graph] capture on batch 0: {graph.capture_s:.3f} s recording, "
         f"{graph.instantiate_s:.3f} s ending and instantiating; private "
-        f"pool {graph.pool_bytes} B; four replays on batches 1-4 (the last "
+        f"pool {graph.pool_bytes} B (the [b, M, P] junction tables that the "
+        f"chain DP reads by interval instead would take {tables} B at "
+        f"b = {rows}, M = {NL} x {cap}, P = {P}); four "
+        f"replays on batches 1-4 (the last "
         f"{spans[-1][1] - spans[-1][0]} pairs, padded) bit-equal to the "
         f"eager step; peak device memory of the capture {peak / 1e9:.3f} "
         f"GB ({(peak - before) / 1e9:.3f} GB above the tables)")
@@ -1099,33 +1159,119 @@ def phase_graph(full, reads, cfg, device, batch=4096):
                 busy=busy, wall=wall, n_ops=n_ops, dev_ops=n_dev / n_rep)
 
 
-def declared_statics(src):
-    """{C symbol: int statics between L and the stream} as a kernel source
-    declares them: an older source may take fewer than ``_ext.KERNELS``
-    says (cm_one_side took no w before its window was sized from one)."""
+def c_params(src):
+    """{C symbol: its parameter names, in order} of the cm_* kernel entry
+    points that a kernel source defines: each source's own signature (an
+    older source may take other arguments than ``_ext.KERNELS`` says)."""
     import re
-    from circminer_tpu_torch.ops import _ext
     with open(src) as f:
         text = f.read()
-    out = {}
-    for sym in (_ext.KERNELS[name].sym for name in _ext.DP_KERNELS):
-        params = [p.strip() for p in re.search(
-            rf"int {sym}\(([^)]*)\)", text).group(1).split(",")]
-        out[sym] = len(params) - params.index("int L") - 2
-    return out
+    return {m.group(1): [q.split()[-1].lstrip("*")
+                         for q in m.group(2).split(",")]
+            for m in re.finditer(r"\bint (cm_\w+)\(([^)]*)\)", text)}
 
 
-def phase_ab(sources, w=3, rows=(1024, 4096, 8192, 512), iters=200):
-    """``python3 chip_smoke.py --ab A.cu B.cu ...``: the kernels of several
-    versions of the CUDA source on one card, in turns (A B ... then ... B
-    A), each built with the port's nvcc flags and held bit-equal to the
-    plain versions, at ``rows`` items of kernel_inputs at band w.  Returns
-    {source: {kernel: {rows: mean ms of the two turns}}}."""
-    import ctypes
+# the --ab cases: the DP kernels' rows at band w = 3, chain_dp's (S, NL,
+# rows) at P = 16 (chr21's main shape on adversarial inputs and
+# gpu-chain's two wide buckets; then one chr21 step's recorded inputs),
+# the fold's (reads, P_MAX); each with its iterations per timing
+AB_ROWS = (1024, 4096, 8192, 512)
+AB_CHAIN = ((16, 6, 16384), (128, 15, 2048), (500, 15, 128))
+AB_FOLD = ((4096, 8),)
+AB_ITERS = {"chain_dp": 20, "mr_pair_fold": 50}
+
+
+def ab_cases(names, w=3, seed=19):
+    """(kernel, tag, {parameter name: tensor or int}, output names, the
+    plain version's outputs) for the kernels in ``names``, on the card.
+    chain_dp's values hold both interfaces: the cells' intervals with the
+    annotation's tables, and the [b, M, P] tables (sep, snp, pv) that an
+    older source takes."""
     import numpy as np
     import torch
     from circminer_tpu_torch.ops import _ext
+    from circminer_tpu_torch.ops import chain_device as cd
+    from circminer_tpu_torch.ops import device_full as df
     from circminer_tpu_torch.ops.align import ScoreMat
+    sm = ScoreMat()
+    statics = dict(w=w, mat=sm.mat, mis=sm.mis, ind=sm.ind, xd=sm.xd,
+                   max_ed=4, max_sc=7)
+    if set(names) & set(_ext.DP_KERNELS):
+        for B in AB_ROWS:
+            host = kernel_inputs(np.random.default_rng(B), B, w)
+            s, t, n, m, wv = (torch.from_numpy(a).cuda() for a in host)
+            cases = kernel_cases(s, t, n, m, wv, w, 4, 7, sm)
+            for name in _ext.DP_KERNELS:
+                if name in names:
+                    yield (name, f"B={B} w={w}",
+                           dict(statics, s=s, t=t, n=n, m=m, wv=wv, B=B,
+                                L=s.shape[1]),
+                           ("out",), (as_matrix(cases[name][1]()),))
+
+    def chain_case(tag, args, kw):
+        P = args[8].shape[1]
+        tabs = [x.permute(2, 0, 1).contiguous()
+                for x in cd._junction_tables(*args[6:], P)]
+        vals = dict(zip(_ext.KERNELS["chain_dp"].tensors, args),
+                    sep=tabs[0], snp=tabs[1], pv=tabs[2],
+                    b=args[0].shape[0], P=P, **kw)
+        return ("chain_dp", tag, vals, ("dp", "back"),
+                cd._chain_dp_plain(*args, **kw))
+    if "chain_dp" in names:
+        for S, NL, b in AB_CHAIN:
+            arrs, kw = chain_dp_inputs(np.random.default_rng(seed + S), b,
+                                       NL, S, 16)
+            yield chain_case(f"S={S} NL={NL} b={b}",
+                             [torch.from_numpy(a).cuda() for a in arrs], kw)
+        rec = chr21_chain_inputs()
+        yield chain_case(f"chr21 step, b={rec['args'][0].shape[0]}",
+                         rec["args"], rec["kw"])
+    if "mr_pair_fold" in names:
+        for B, P in AB_FOLD:
+            arrs, kw = fold_inputs(np.random.default_rng(seed), B, P)
+            args = [torch.from_numpy(a).cuda() for a in arrs]
+            kw = dict(kw, scan_level=0)
+            yield ("mr_pair_fold", f"B={B} P={P}",
+                   dict(zip(_ext.KERNELS["mr_pair_fold"].tensors, args),
+                        B=B, P=P, **kw),
+                   ("mr_out", "aux"), df._mr_pair_fold_plain(*args, **kw))
+
+
+def chr21_chain_inputs():
+    """The inputs of chain_dp in one eager chr21 gpu-full step of 4,096
+    pairs (the main path's): {"args", "kw", "count"}."""
+    import torch
+    from circminer_tpu_torch.pipeline.device_pipeline import (
+        DeviceMappingPipeline)
+    cfg, gi, db, reads, _ = chr21_setup()
+    pipe = DeviceMappingPipeline(db, gi, cfg, batch_size=4096,
+                                 chain_exec="device-full",
+                                 extend_exec="native",
+                                 device=torch.device("cuda"))
+    pipe.warmup()
+    pipe.step_graph = False
+    store = {}
+    undo = recording_chain_fold(store)
+    try:
+        pipe.map_stream(iter(make_pairs(reads[:4096], cfg)))
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    [rec] = [v for (name, _), v in store.items() if name == "chain_dp"]
+    return rec
+
+
+def phase_ab(sources):
+    """``python3 chip_smoke.py --ab A.cu B.cu ...``: the kernels of several
+    versions of the CUDA sources on one card, each source built alone with
+    the port's nvcc flags.  Per case of ``ab_cases`` the sources that
+    define its kernel are held bit-equal to the plain version and timed
+    by the profiler's device events in turns (A B ... then ... B A), each
+    called with its own parameters, laid out by name.  Returns {source:
+    {kernel: {case: mean ms of the two turns}}}."""
+    import ctypes
+    import torch
+    from circminer_tpu_torch.ops import _ext
     flags = [f for f in _ext.NVCC_FLAGS if f not in ("-Xptxas", "-v")] + [
         "-shared"]
     out_dir = os.path.join(HERE, "build", "ab")
@@ -1136,52 +1282,41 @@ def phase_ab(sources, w=3, rows=(1024, 4096, 8192, 512), iters=200):
         procs.append((src, so, subprocess.Popen(
             [_ext._nvcc(), *flags, "-o", so, src], stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)))
-    libs, n_statics = {}, {}
+    libs, params = {}, {}
     for src, so, proc in procs:          # the builds run side by side
         _, err = proc.communicate()
         check(proc.returncode == 0, f"nvcc {src} failed:\n{err[-3000:]}")
-        n_statics[src] = declared_statics(src)   # each its own signature
-        libs[src] = ctypes.CDLL(so)
-        p, c = ctypes.c_void_p, ctypes.c_int
-        for sym, k in n_statics[src].items():
-            fn = getattr(libs[src], sym)
-            # s, t, n, m, wv, out, B, L, statics..., stream
-            fn.argtypes = [p] * 6 + [c, c] + [c] * k + [p]
-            fn.restype = c
-    sm = ScoreMat()
-    statics = {"xdrop": (w, sm.mat, sm.mis, sm.ind, sm.xd),
-               "edit_sc": (w, 4, 7), "edit_end": (w, 4), "one_side": (w,)}
-    ncols = {"xdrop": 3, "edit_sc": 4, "edit_end": 2, "one_side": 1}
+        libs[src], params[src] = ctypes.CDLL(so), c_params(src)
+    syms = {spec.sym: name for name, spec in _ext.KERNELS.items()}
+    names = {syms[sym] for src in sources for sym in params[src]
+             if sym in syms}
+    stream = torch.cuda.current_stream().cuda_stream
     times = {src: {} for src in sources}
-    for B in rows:
-        host = kernel_inputs(np.random.default_rng(B), B, w)
-        s, t, n, m, wv = (torch.from_numpy(a).cuda() for a in host)
-        plain = {name: as_matrix(cases[1]()) for name, cases in kernel_cases(
-            s, t, n, m, wv, w, 4, 7, sm).items()}
-        stream = torch.cuda.current_stream().cuda_stream
-        for turn in (sources, sources[::-1]):
+    for name, tag, vals, out_names, want in ab_cases(names):
+        sym = _ext.KERNELS[name].sym
+        have = [src for src in sources if sym in params[src]]
+        for turn in (have, have[::-1]):
             for src in turn:
-                for name in _ext.DP_KERNELS:
-                    sym = _ext.KERNELS[name].sym
-                    out = torch.empty((B, ncols[name]), dtype=torch.int32,
-                                      device="cuda")
-                    fn = getattr(libs[src], sym)
-                    args = (s.data_ptr(), t.data_ptr(), n.data_ptr(),
-                            m.data_ptr(), wv.data_ptr(), out.data_ptr(), B,
-                            s.shape[1],
-                            *statics[name][:n_statics[src][sym]], stream)
-                    check(fn(*args) == 0, f"{src} {name} failed to launch")
-                    torch.cuda.synchronize()
-                    check(torch.equal(out, plain[name]),
-                          f"{src} {name} differs from its plain version "
-                          f"at B={B}")
-                    ms = device_ms(lambda: fn(*args), f"{name}_kernel",
-                                   iters)
-                    times[src].setdefault(name, {}).setdefault(
-                        str(B), []).append(ms)
-                    log(f"[ab] {os.path.basename(src)} {name} B={B} w={w}: "
-                        f"{ms:.5f} ms")
-    return {src: {name: {b: sum(v) / len(v) for b, v in per.items()}
+                outs = {o: torch.empty_like(x)
+                        for o, x in zip(out_names, want)}
+                got = dict(vals, **outs)
+                args = [ctypes.c_void_p(v.data_ptr()) if torch.is_tensor(v)
+                        else ctypes.c_int(v)
+                        for v in (got[q] for q in params[src][sym][:-1])]
+                args.append(ctypes.c_void_p(stream))
+                fn = getattr(libs[src], sym)
+                check(fn(*args) == 0, f"{src} {name} failed to launch")
+                torch.cuda.synchronize()
+                check(all(torch.equal(outs[o], x)
+                          for o, x in zip(out_names, want)),
+                      f"{src} {name} differs from its plain version ({tag})")
+                ms = device_ms(lambda: fn(*args), f"{name}_kernel",
+                               AB_ITERS.get(name, 200))
+                times[src].setdefault(name, {}).setdefault(
+                    tag, []).append(ms)
+                log(f"[ab] {os.path.basename(src)} {name} {tag}: "
+                    f"{ms:.5f} ms")
+    return {src: {name: {tag: sum(v) / len(v) for tag, v in per.items()}
                   for name, per in kern.items()}
             for src, kern in times.items()}
 
@@ -1199,6 +1334,7 @@ def phase_replay(batch=4096, turns=3, iters=10):
     graph = r["pipe"].full_graph
     check(graph.captures == 1, f"{graph.captures} captures")
     return dict(map_pairs_per_s=r["n"] / r["map_s"], map_s=r["map_s"],
+                pool_bytes=graph.pool_bytes,
                 replay_ms=[cuda_ms(graph.replay, iters)
                            for _ in range(turns)])
 

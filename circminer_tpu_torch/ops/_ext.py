@@ -55,8 +55,8 @@ KERNELS = {
     "one_side": Kernel("cm_one_side", ("w",)),
     "chain_dp": Kernel(
         "cm_chain_dp", ("b", "NL", "S", "P", "k", "max_ed", "max_intron"),
-        ("posf", "qposf", "validf", "ub", "mee", "e1", "sep", "snp", "pv",
-         "dp", "back")),
+        ("posf", "qposf", "validf", "ub", "mee", "e1", "ol_iv", "iv_nseg",
+         "seg_end", "seg_next", "dp", "back")),
     "mr_pair_fold": Kernel(
         "cm_mr_pair_fold", ("B", "P", "max_tlen", "contig_num",
                             "scan_level"),

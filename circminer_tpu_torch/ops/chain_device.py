@@ -5,19 +5,24 @@ The host half of that module (``Chain``, ``extract_kbest``, ...) is the
 port's jax-free copy in ``ops/chain.py``, pinned source-identical to the
 reference; this module holds the dense device formulation:
 
-  * ``_chain_prelude``: per seed cell, the reference's upper bound (the
+  * ``_chain_cells``: per seed cell, the reference's upper bound (the
     near_border bit, the exon interval containing the seed and its end
-    aggregates, gene_annotation.h:123-133) and the pre-gathered junction
-    tables (segment ends and next-exon starts) that the transitions read;
-    in two forms, bit-equal to each other: padded row gathers
+    aggregates, gene_annotation.h:123-133) and that interval (``ol_iv``,
+    or -1), whose junction segments the transitions read;
+    ``_junction_tables`` gathers them by interval into the reference's
+    [M, P, b] tables (segment ends, next-exon starts, and which are set),
+    and ``_chain_prelude``, the two in turn, is the reference's prelude;
+    each in two forms, bit-equal to each other: padded row gathers
     (``seg_compact=False``), or one column at a time (``seg_compact=True``,
     the reference's low-memory form for very large entry tables);
   * ``_chain_dp_core_lanes``: the transition DP over lists (chain.cpp:73-301)
     with the gap, maxIntron and junction gates (chain.cpp:28-64), keeping
-    the first maximum as the backpointer: the plain version of the
-    ``chain_dp`` kernel (csrc/chain_dp.cu), which ``chain_dp`` launches on
-    a CUDA tensor;
-  * ``chain_batch_device`` = prelude + ``chain_dp``;
+    the first maximum as the backpointer: with the tables, the plain
+    version (``_chain_dp_plain``) of the ``chain_dp`` kernel
+    (csrc/chain_dp.cu), which ``chain_dp`` launches on a CUDA tensor and
+    which reads the segments by interval, so that the card path builds no
+    [M, P, b] table;
+  * ``chain_batch_device`` = ``_chain_cells`` + ``chain_dp``;
     ``gather_and_chain_device`` = seed gather + chain DP.
 
 Scores are int32 in 0.1 units (score10 = 10 * score): alpha10 = 2e5 * k per
@@ -57,62 +62,75 @@ def chain_batch_device(pos, cnt, qpos, seq_len,
     [B, NL, S] final scores and flat backpointers into NL*S (or -1)."""
     B, NL, S = pos.shape
     with record_function("cm.chain_prelude"):
-        pre = _chain_prelude(pos, cnt, qpos, seq_len, nb_bits, iv_spos,
+        cells = _chain_cells(pos, cnt, qpos, seq_len, nb_bits, iv_spos,
                              iv_epos, iv_max_end, iv_min_end, iv_max_next,
                              iv_nseg, seg_end, seg_next, k=k, max_ed=max_ed,
                              seg_pad=seg_pad, seg_compact=seg_compact)
     with record_function("cm.chain_dp"):
-        return chain_dp(*pre, NL=NL, S=S, k=k, max_ed=max_ed,
-                        max_intron=max_intron)
+        return chain_dp(*cells, iv_nseg, seg_end, seg_next, NL=NL, S=S, k=k,
+                        max_ed=max_ed, max_intron=max_intron,
+                        seg_compact=seg_compact)
 
 
-def chain_dp(posf, qposf, validf, ub, mee, e1, sep_c, snp_c, pv_c, *,
-             NL: int, S: int, k: int, max_ed: int, max_intron: int):
-    """The chain DP of the prelude's tensors: (dp10, back) int32 [b, NL, S].
-    On a CPU tensor its plain version (``_chain_dp_core_lanes``); on a CUDA
-    tensor the ``chain_dp`` kernel, or a raise (the kernel refuses rows
-    whose lists outgrow a block's shared memory)."""
+def chain_dp(posf, qposf, validf, ub, mee, e1, ol_iv, iv_nseg, seg_end,
+             seg_next, *, NL: int, S: int, k: int, max_ed: int,
+             max_intron: int, seg_compact: bool = False):
+    """The chain DP of the cells (``_chain_cells``) and the annotation's
+    junction tables: (dp10, back) int32 [b, NL, S].  A cell with ``ol_iv
+    >= 0`` reads the segments of that interval.  On a CPU tensor its plain
+    version: the [M, P, b] tables gathered by ``_junction_tables``, then
+    ``_chain_dp_core_lanes``; on a CUDA tensor the ``chain_dp`` kernel,
+    which reads ``iv_nseg`` / ``seg_end`` / ``seg_next`` in place, or a
+    raise (the kernel refuses rows whose lists outgrow a block's shared
+    memory)."""
     if not posf.is_cuda:
-        return _chain_dp_plain(posf, qposf, validf, ub, mee, e1, sep_c,
-                               snp_c, pv_c, NL=NL, S=S, k=k, max_ed=max_ed,
-                               max_intron=max_intron)
+        return _chain_dp_plain(posf, qposf, validf, ub, mee, e1, ol_iv,
+                               iv_nseg, seg_end, seg_next, NL=NL, S=S, k=k,
+                               max_ed=max_ed, max_intron=max_intron,
+                               seg_compact=seg_compact)
     b = posf.shape[0]
     dp = torch.empty((b, NL, S), dtype=_i32, device=posf.device)
     back = torch.empty_like(dp)
     if b == 0 or NL * S == 0:
         return dp, back
     _ext.launch_tensors(
-        "chain_dp", chain_dp_args(posf, qposf, validf, ub, mee, e1, sep_c,
-                                  snp_c, pv_c, dp, back, NL=NL, S=S),
-        (b, NL, S, sep_c.shape[1], k, max_ed, max_intron))
+        "chain_dp", chain_dp_args(posf, qposf, validf, ub, mee, e1, ol_iv,
+                                  iv_nseg, seg_end, seg_next, dp, back,
+                                  NL=NL, S=S),
+        (b, NL, S, seg_end.shape[1], k, max_ed, max_intron))
     return dp, back
 
 
-def _chain_dp_plain(*pre, NL: int, S: int, k: int, max_ed: int,
-                    max_intron: int):
-    """The plain version of ``chain_dp``: ``_chain_dp_core_lanes``, its
+def _chain_dp_plain(posf, qposf, validf, ub, mee, e1, ol_iv, iv_nseg,
+                    seg_end, seg_next, *, NL: int, S: int, k: int,
+                    max_ed: int, max_intron: int, seg_compact: bool = False):
+    """The plain version of ``chain_dp``, on any device: the junction
+    tables gathered (``_junction_tables``), ``_chain_dp_core_lanes``, its
     per-list [S, b] pieces stacked into [b, NL, S]."""
-    dpl, bkl = _chain_dp_core_lanes(*pre, NL=NL, S=S, k=k, max_ed=max_ed,
+    tables = _junction_tables(ol_iv, iv_nseg, seg_end, seg_next,
+                              seg_end.shape[1], seg_compact)
+    dpl, bkl = _chain_dp_core_lanes(posf, qposf, validf, ub, mee, e1,
+                                    *tables, NL=NL, S=S, k=k, max_ed=max_ed,
                                     max_intron=max_intron)
     dp = torch.stack(dpl, dim=0).permute(2, 0, 1).contiguous()
     back = torch.stack(bkl, dim=0).permute(2, 0, 1).contiguous()
     return dp, back
 
 
-def chain_dp_args(posf, qposf, validf, ub, mee, e1, sep_c, snp_c, pv_c, dp,
-                  back, *, NL: int, S: int):
+def chain_dp_args(posf, qposf, validf, ub, mee, e1, ol_iv, iv_nseg, seg_end,
+                  seg_next, dp, back, *, NL: int, S: int):
     """The (tensor, dtype, shape) arguments of the ``chain_dp`` kernel, in
-    its order.  The kernel reads the [M, P, b] junction tables in [b, M, P]
-    order, the order of the prelude's gathers, so their permuted views are
-    contiguous and nothing is copied."""
+    its order: the [b, M] cells, the annotation's [n_iv] segment counts and
+    [n_iv, P] segment tables as they are (nothing is copied), the [b, NL,
+    S] outputs."""
     b, M = posf.shape[0], NL * S
-    P = sep_c.shape[1]
-    i32, u8 = _i32, torch.bool
-    rows = [(x, i32, (b, M)) for x in (posf, qposf)] + [(validf, u8, (b, M))]
-    rows += [(x, i32, (b, M)) for x in (ub, mee, e1)]
-    rows += [(x.permute(2, 0, 1).contiguous(), dt, (b, M, P))
-             for x, dt in ((sep_c, i32), (snp_c, i32), (pv_c, u8))]
-    return rows + [(x, i32, (b, NL, S)) for x in (dp, back)]
+    n_iv, P = seg_end.shape
+    rows = [(x, _i32, (b, M)) for x in (posf, qposf)]
+    rows += [(validf, torch.bool, (b, M))]
+    rows += [(x, _i32, (b, M)) for x in (ub, mee, e1, ol_iv)]
+    rows += [(iv_nseg, _i32, (n_iv,))]
+    rows += [(x, _i32, (n_iv, P)) for x in (seg_end, seg_next)]
+    return rows + [(x, _i32, (b, NL, S)) for x in (dp, back)]
 
 
 def _chain_dp_core_lanes(posf, qposf, validf, ub, mee, e1, sep_c, snp_c,
@@ -205,7 +223,25 @@ def _chain_prelude(pos, cnt, qpos, seq_len,
                    *, k: int, max_ed: int, seg_pad: int,
                    seg_compact: bool = False):
     """Per-cell upper bounds + pre-gathered junction tables (the
-    annotation-dependent half of the chain DP)."""
+    annotation-dependent half of the chain DP), the reference's
+    ``_chain_prelude``: ``_chain_cells``, then ``_junction_tables`` in
+    place of the cells' intervals."""
+    *cells, ol_iv = _chain_cells(
+        pos, cnt, qpos, seq_len, nb_bits, iv_spos, iv_epos, iv_max_end,
+        iv_min_end, iv_max_next, iv_nseg, seg_end, seg_next, k=k,
+        max_ed=max_ed, seg_pad=seg_pad, seg_compact=seg_compact)
+    return (*cells, *_junction_tables(ol_iv, iv_nseg, seg_end, seg_next,
+                                      seg_pad, seg_compact))
+
+
+def _chain_cells(pos, cnt, qpos, seq_len,
+                 nb_bits, iv_spos, iv_epos, iv_max_end, iv_min_end,
+                 iv_max_next, iv_nseg, seg_end, seg_next,
+                 *, k: int, max_ed: int, seg_pad: int,
+                 seg_compact: bool = False):
+    """Per-cell tensors of the chain DP, [B, M] each: (posf, qposf,
+    validf, ub, mee, e1, ol_iv), ol_iv the cell's exon interval or -1
+    (its junction segments are that interval's)."""
     B, NL, S = pos.shape
     M = NL * S
     dev = pos.device
@@ -287,9 +323,19 @@ def _chain_prelude(pos, cnt, qpos, seq_len,
     mee = torch.where(nb, torch.where(found, mee_found, max_end_intr), 0)
     ol_iv = torch.where(nb & found & exonic, iv_c.to(_i32), -1)
 
-    # ---- per-cell constants + pre-gathered junction tables [M, P, b] ----
-    # (views of [B, M, P] gathers: the chain_dp kernel reads that order)
     e1 = posf + k - 1
+    return posf, qposf, validf, ub, mee, e1, ol_iv
+
+
+def _junction_tables(ol_iv, iv_nseg, seg_end, seg_next, seg_pad: int,
+                     seg_compact: bool = False):
+    """The junction tables of the cells' intervals, as the reference's
+    prelude gathers them: (sep, snp, pv), [M, P, b] views of [B, M, P]
+    gathers (pv: segment p < the interval's count, for a cell with an
+    interval); padded row gathers, or one column at a time
+    (``seg_compact``)."""
+    n_iv = seg_end.shape[0]
+    dev = ol_iv.device
     has_iv = ol_iv >= 0
     iv_cc = torch.clamp(ol_iv, 0, n_iv - 1).long()
     nseg_cc = iv_nseg[iv_cc]                                     # [B, M]
@@ -303,8 +349,7 @@ def _chain_prelude(pos, cnt, qpos, seq_len,
     pv = (has_iv[:, :, None]
           & (torch.arange(seg_pad, dtype=_i32, device=dev)[None, None, :]
              < nseg_cc[:, :, None]))                             # [B, M, P]
-    sep_T, snp_T, pv_T = (x.permute(1, 2, 0) for x in (sep, snp, pv))
-    return posf, qposf, validf, ub, mee, e1, sep_T, snp_T, pv_T
+    return tuple(x.permute(1, 2, 0) for x in (sep, snp, pv))
 
 
 def gather_and_chain_device(entry_pos, start, cnt, qpos, seq_len,

@@ -9,6 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from circminer_tpu.annotation import device as jdev
 from circminer_tpu.annotation.annotation import AnnotationDB
@@ -220,23 +221,57 @@ def test_chain_prelude_forms_are_bit_equal(world, seeds):
         assert torch.equal(a, b)
 
 
-def test_chain_dp_reads_the_prelude_tables_in_place(world, seeds):
-    """The chain_dp kernel's junction-table arguments are the prelude's own
-    storage in both forms: its wrapper copies nothing."""
+def test_chain_dp_reads_the_prelude_tables_in_place(world, seeds,
+                                                    monkeypatch):
+    """On the card path the chain_dp kernel's junction-table arguments are
+    the annotation's own iv_nseg / seg_end / seg_next storage and its cell
+    arguments the cells' own, in both forms: nothing is copied, and no
+    [b, M, P] tensor is made from the cells to the launch.  (The card path
+    is taken on CPU tensors that report is_cuda, the launch recorded.)"""
     cfg = world[0]
     ad = seeds["tad"]
-    args = [_t(a) for a in _chain_inputs(world, seeds)] + [
-        ad.nb_bits, ad.iv_spos, ad.iv_epos, ad.iv_max_end, ad.iv_min_end,
-        ad.iv_max_next, ad.iv_nseg, ad.seg_end, ad.seg_next]
-    kw = dict(k=cfg.kmer, max_ed=cfg.max_ed, seg_pad=ad.seg_pad)
-    NL, S = args[0].shape[1:]
+    pos, cnt, qpos, lens = (_t(a) for a in _chain_inputs(world, seeds))
+    annos = [ad.nb_bits, ad.iv_spos, ad.iv_epos, ad.iv_max_end,
+             ad.iv_min_end, ad.iv_max_next, ad.iv_nseg, ad.seg_end,
+             ad.seg_next]
+    B, NL, S = pos.shape
+    P = ad.seg_pad
+    launched = []
+
+    def launch(name, args, statics):
+        launched.append((name, args, statics))
+
+    class Shapes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for x in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(x, torch.Tensor):
+                    made.append(x.numel())
+            return out
+
     for seg_compact in (False, True):
-        pre = tchain._chain_prelude(*args, seg_compact=seg_compact, **kw)
-        out = torch.empty((pre[0].shape[0], NL, S), dtype=torch.int32)
-        kargs = tchain.chain_dp_args(*pre, out, out, NL=NL, S=S)
-        assert len(kargs) == len(pre) + 2
-        for (x, _, _), y in zip(kargs, pre):
+        cells = tchain._chain_cells(pos, cnt, qpos, lens, *annos,
+                                    k=cfg.kmer, max_ed=cfg.max_ed,
+                                    seg_pad=P, seg_compact=seg_compact)
+        launched.clear()
+        made = []
+        with monkeypatch.context() as m:
+            m.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+            m.setattr(tchain._ext, "launch_tensors", launch)
+            with Shapes():
+                tchain.chain_dp(*cells, ad.iv_nseg, ad.seg_end, ad.seg_next,
+                                NL=NL, S=S, k=cfg.kmer, max_ed=cfg.max_ed,
+                                max_intron=cfg.max_intron,
+                                seg_compact=seg_compact)
+        [(name, kargs, statics)] = launched
+        assert name == "chain_dp" and statics[3] == P
+        mine = list(cells) + [ad.iv_nseg, ad.seg_end, ad.seg_next]
+        assert len(kargs) == len(mine) + 2 == len(
+            tchain._ext.KERNELS["chain_dp"].tensors)
+        for (x, dt, shape), y in zip(kargs, mine):
             assert x.data_ptr() == y.data_ptr(), seg_compact
+            assert x.dtype == dt and tuple(x.shape) == shape
+        assert made and max(made) <= B * NL * S < B * NL * S * P, made
 
 
 def _extract_inputs(world, seeds, jax_chain):

@@ -2,18 +2,28 @@
 csrc/chain_dp.cu and csrc/mr_fold.cu, on the CPU.
 
 - The port's plain chain DP (``chain_device._chain_dp_plain``, which the
-  ``chain_dp`` wrapper runs on a CPU tensor) against the reference's
-  ``circminer_tpu.ops.chain._chain_dp_core_lanes``, bit-equal, on inputs
-  made from a seed with numpy: invalid cells and all-invalid rows, score
-  ties within and across lists, several accepting junction segments,
-  minpos at exactly pi + max_intron, rows near the int32 limit; NL in
-  {2, 4}, S in {4, 16}, P in {1, 4}.
-- A scalar transcription of each kernel's loop order (per row and cell for
-  chain_dp, with its skips and its one running first maximum; per read
-  for mr_pair_fold, with its early-return go_for_update) against the
-  plain version, with counts that show every gate, tie and rule taken.
-  On the card, chip_smoke.py phase 2 holds each kernel to its plain
-  version; these transcriptions are the CPU stand-in.
+  ``chain_dp`` wrapper runs on a CPU tensor: the cells' interval form,
+  its junction tables gathered by ``_junction_tables``) against the
+  reference's ``circminer_tpu.ops.chain._chain_dp_core_lanes`` fed those
+  tables, bit-equal, on inputs made from a seed with numpy: invalid cells
+  and all-invalid rows, cells without an interval and intervals shared
+  by several cells, score ties within and across lists, several
+  accepting junction segments, minpos at exactly pi + max_intron, rows
+  near the int32 limit; NL in {2, 4}, S in {4, 16}, P in {1, 4}, both
+  forms of the gathers.
+- A scalar transcription of each kernel's loop order (for chain_dp per
+  list: the invalid cells from the later lists' running maximum, then
+  per valid cell and later list the maxIntron minimum, a closed list's
+  first maximum, and the targets strided over a row's G = min(S, 32)
+  lanes with the (value, flat index) reduction; per read for
+  mr_pair_fold, with its early-return go_for_update)
+  against the plain version, with counts that show every gate, tie and
+  rule taken.  On the card, chip_smoke.py phase 2 holds each kernel to
+  its plain version; these transcriptions are the CPU stand-in.
+- A mirror of the chain_dp kernel's layout (a warp's 32 / G rows, each
+  padded to S mod 32 words): every shared-memory load of its target loop
+  is one word per bank, or one broadcast word, in each warp, and so are
+  its fills.
 - The C enums and constants against the Python orders and config.py.
 - ``cuda``-marked (skipped without a card): both kernels against their
   plain versions on the card, also inside a captured CUDA graph.
@@ -29,7 +39,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import chain_dp_inputs
+from chip_smoke import chain_dp_inputs, chain_dp_warp_ties
 from chip_smoke import fold_inputs as smoke_fold_inputs
 from circminer_tpu.ops import chain as jchain
 from circminer_tpu_torch import config as tconfig
@@ -55,12 +65,12 @@ def abs32(x):
 # inputs
 # --------------------------------------------------------------------------
 
-def chain_inputs(seed, b, NL, S, P):
+def chain_inputs(seed, b, NL, S, P, **kw):
     """chip_smoke.chain_dp_inputs (the card's adversarial sweep) from a
     seed: every value from a narrow window, so that gates, ties and
     junction branches are taken often; invalid cells and all-invalid rows,
     repeated positions and segments, rows near the int32 limit."""
-    return chain_dp_inputs(np.random.default_rng(seed), b, NL, S, P)
+    return chain_dp_inputs(np.random.default_rng(seed), b, NL, S, P, **kw)
 
 
 def fold_inputs(seed, B, P):
@@ -79,14 +89,23 @@ def _torch(arrays):
 # the chain DP: plain version against JAX
 # --------------------------------------------------------------------------
 
+def _jax_chain_dp(arrays, kw, seg_compact=False):
+    """The reference's _chain_dp_core_lanes on these cells, fed the tables
+    that _junction_tables gathers: (dp, back) [b, NL, S]."""
+    t = _torch(arrays)
+    tables = tchain._junction_tables(*t[6:], t[8].shape[1], seg_compact)
+    pre = [a for a in arrays[:6]] + [x.numpy() for x in tables]
+    dpl, bkl = jchain._chain_dp_core_lanes(*(jnp.asarray(a) for a in pre),
+                                           **kw)
+    return (np.asarray(jnp.stack(dpl, axis=0).transpose(2, 0, 1)),
+            np.asarray(jnp.stack(bkl, axis=0).transpose(2, 0, 1)))
+
+
 @pytest.mark.parametrize("NL,S,P", [(NL, S, P) for NL in (2, 4)
                                     for S in (4, 16) for P in (1, 4)])
 def test_chain_dp_plain_matches_jax(NL, S, P):
     arrays, kw = chain_inputs(100 * NL + 10 * S + P, 48, NL, S, P)
-    dpl, bkl = jchain._chain_dp_core_lanes(
-        *(jnp.asarray(a) for a in arrays), **kw)
-    want_dp = np.asarray(jnp.stack(dpl, axis=0).transpose(2, 0, 1))
-    want_bk = np.asarray(jnp.stack(bkl, axis=0).transpose(2, 0, 1))
+    want_dp, want_bk = _jax_chain_dp(arrays, kw)
     got_dp, got_bk = tchain.chain_dp(*_torch(arrays), **kw)
     assert got_dp.dtype == got_bk.dtype == torch.int32
     assert np.array_equal(got_dp.numpy(), want_dp)
@@ -96,19 +115,50 @@ def test_chain_dp_plain_matches_jax(NL, S, P):
     assert (want_bk[inv] >= 0).any()
 
 
+@pytest.mark.parametrize("S,P", [(S, P) for S in (4, 16) for P in (1, 4)])
+def test_chain_dp_interval_form_matches_jax(S, P):
+    """chain_dp's CPU path on the interval form, with the column-at-a-time
+    gathers (seg_compact), equals the reference fed the padded gathers'
+    tables; both gathers give the same tables."""
+    NL = 4
+    arrays, kw = chain_inputs(7 * S + P, 40, NL, S, P)
+    want = _jax_chain_dp(arrays, kw)
+    got = tchain.chain_dp(*_torch(arrays), **kw, seg_compact=True)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), w)
+    t = _torch(arrays)
+    for a, b in zip(tchain._junction_tables(*t[6:], P, False),
+                    tchain._junction_tables(*t[6:], P, True)):
+        assert torch.equal(a, b)
+    # cells without an interval, shared intervals, several segments
+    iv = arrays[6]
+    assert (iv < 0).any() and len(np.unique(iv[iv >= 0])) < (iv >= 0).sum()
+    assert P == 1 or (arrays[7] > 1).any()
+
+
 # --------------------------------------------------------------------------
 # the chain DP: the kernel's loop order, scalar
 # --------------------------------------------------------------------------
 
-def chain_dp_scalar(posf, qposf, validf, ub, mee, e1, sep, snp, pv, *, NL,
-                    S, k, max_ed, max_intron, cov):
-    """csrc/chain_dp.cu's per-row, per-cell loops in Python: lists l from
-    NL - 2 down, the cell's junction segments with pv_e, per later list the
-    maxIntron minimum, then per target the gates (the junction scan only
-    where the gap gate failed, up to the first accepting segment) and one
-    running strict ">" over (j, t).  ``cov`` counts the branches taken."""
+def _c_const(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def chain_dp_scalar(posf, qposf, validf, ub, mee, e1, ol_iv, iv_nseg,
+                    seg_end, seg_next, *, NL, S, k, max_ed, max_intron, cov):
+    """csrc/chain_dp.cu's loops in Python, per row: lists l from NL - 2
+    down; a cell whose valid bit is clear takes NEG + the later lists'
+    running first maximum; a valid cell's segments are its interval's, and
+    per later list j it takes the maxIntron minimum, then NEG + list j's
+    first maximum if that gate is closed, else walks the targets with the
+    gates (the junction scan only where the gap gate failed, up to the
+    first accepting segment) and a running strict ">" per lane, a row's
+    G = min(S, 32) lanes over t = lane + G m, reduced on (value
+    descending, flat index ascending).  ``cov`` counts the branches
+    taken."""
+    G = min(S, 32)
     b, M = posf.shape
-    P = sep.shape[1]
+    P = seg_end.shape[1]
     alpha10 = w32(200000 * k)
     dp = np.zeros((b, M), np.int64)
     back = np.full((b, M), -1, np.int64)
@@ -116,35 +166,47 @@ def chain_dp_scalar(posf, qposf, validf, ub, mee, e1, sep, snp, pv, *, NL,
         pos = [int(x) for x in posf[row]]
         val = [bool(x) for x in validf[row]]
         d = [10 * k if v else NEG for v in val]
+
+        def first_max(j):
+            v, i = max((d[j * S + t], -(j * S + t)) for t in range(S))
+            return v, -i
+        lm = {NL - 1: first_max(NL - 1)}
+        sm = lm[NL - 1]
         for l in range(NL - 2, -1, -1):
             qp_l = int(qposf[row, l * S])
             for i in range(S):
                 c = l * S + i
                 pi, v_l = pos[c], val[c]
+                if not v_l:
+                    cand = w32(NEG + sm[0])
+                    if cand > d[c]:
+                        d[c], back[row, c] = cand, sm[1]
+                        cov["invalid_with_back"] += 1
+                    continue
                 ub_l, mee_l, e1_l = int(ub[row, c]), int(mee[row, c]), \
                     int(e1[row, c])
+                iv = int(ol_iv[row, c])
                 segs = []
-                for p in range(P if v_l else 0):
-                    e = w32(int(sep[c, p, row]) - e1_l)
-                    if pv[c, p, row] and e >= 0:
-                        segs.append((e, int(snp[c, p, row])))
-                best_v, best_i = NEG, -1
+                for p in range(min(int(iv_nseg[iv]), P) if iv >= 0 else 0):
+                    e = w32(int(seg_end[iv, p]) - e1_l)
+                    if e >= 0:
+                        segs.append((e, int(seg_next[iv, p])))
+                lanes = [(NEG, -1)] * G
                 for j in range(l + 1, NL):
                     rd = w32(int(qposf[row, j * S]) - qp_l - k)
-                    gate = False
-                    if v_l:
-                        minpos = I32MAX
-                        for t in range(S):
-                            x = pos[j * S + t]
-                            if pi < x < minpos:
-                                minpos = x
-                        gate = minpos <= w32(pi + max_intron)
-                        cov["minpos_at_bound"] += minpos == w32(pi +
-                                                                max_intron)
+                    minpos = min([x for x in pos[j * S:(j + 1) * S] if x > pi]
+                                 + [I32MAX])
+                    cov["minpos_at_bound"] += minpos == w32(pi + max_intron)
+                    if minpos > w32(pi + max_intron):
+                        cov["gate_closed"] += 1
+                        cand = w32(NEG + lm[j][0])
+                        if cand > lanes[0][0]:
+                            lanes[0] = (cand, lm[j][1])
+                        continue
                     for t in range(S):
                         pjv = pos[j * S + t]
                         sc = NEG
-                        if gate and val[j * S + t] and pi < pjv <= ub_l:
+                        if val[j * S + t] and pi < pjv <= ub_l:
                             gd = w32(pjv - pi - k)
                             if (mee_l == 0 or w32(pjv + k - 1) <= mee_l) \
                                     and abs32(w32(gd - rd)) <= max_ed:
@@ -172,32 +234,46 @@ def chain_dp_scalar(posf, qposf, validf, ub, mee, e1, sep, snp, pv, *, NL,
                                         w32(pjv - e1_l - 1)
                                     sc = w32(alpha10 - abs32(w32(dist - rd)))
                         cand = w32(sc + d[j * S + t])
-                        if cand > best_v:
-                            best_v, best_i = cand, j * S + t
-                        elif cand == best_v and best_i >= 0:
-                            cov["tie_across_lists" if best_i // S != j
-                                else "tie_in_list"] += 1
+                        ln = t % G
+                        if cand > lanes[ln][0]:
+                            lanes[ln] = (cand, j * S + t)
+                        elif cand == lanes[ln][0] and lanes[ln][1] >= 0:
+                            cov["tie_in_list" if lanes[ln][1] // S == j
+                                else "tie_across_lists"] += 1
+                best_v = max(v for v, _ in lanes)
+                at_best = [i for v, i in lanes if v == best_v]
+                best_i = min(at_best)
+                if best_v > NEG and len(at_best) > 1:
+                    cov["tie_in_list" if len({x // S for x in at_best}) == 1
+                        else "tie_across_lists"] += 1
+                    cov["tie_across_lanes"] += 1
                 if best_v > d[c]:
-                    d[c] = best_v
-                    back[row, c] = best_i
-                    cov["invalid_with_back"] += not v_l
+                    d[c], back[row, c] = best_v, best_i
+            lm[l] = first_max(l)
+            if lm[l][0] >= sm[0]:
+                sm = lm[l]
         dp[row] = d
     return dp.reshape(b, NL, S), back.reshape(b, NL, S)
 
 
 @pytest.mark.parametrize("NL,S,P", [(2, 4, 1), (4, 4, 4), (4, 16, 4),
-                                    (3, 5, 20), (15, 3, 2)])
+                                    (3, 5, 20), (15, 3, 2), (3, 70, 4),
+                                    (2, 130, 3)])
 def test_chain_dp_loop_order_matches_plain(NL, S, P):
     """The kernel's loop order (scalar) equals the plain version, with
     every gate, tie, junction and intron branch taken."""
-    arrays, kw = chain_inputs(7 * NL + S + 1000 * P, 96 // S + 16, NL, S,
-                              P)
+    # a window of positions wider than the list at wide S, so that the
+    # nearest target beyond a cell is sometimes exactly at the maxIntron
+    # bound
+    arrays, kw = chain_inputs(7 * NL + S + 1000 * P, max(256 // S, 2) + 16,
+                              NL, S, P, span=max(40, 2 * S))
     cov = Counter()
     dp, back = chain_dp_scalar(*arrays, **kw, cov=cov)
     want_dp, want_bk = tchain._chain_dp_plain(*_torch(arrays), **kw)
     assert np.array_equal(dp, want_dp.numpy())
     assert np.array_equal(back, want_bk.numpy())
-    need = {"gap", "tie_in_list", "invalid_with_back", "minpos_at_bound"}
+    need = {"gap", "invalid_with_back", "minpos_at_bound", "gate_closed",
+            "tie_in_list", "tie_across_lanes"}
     if NL > 2:
         need.add("tie_across_lists")
     if P > 1:
@@ -207,8 +283,10 @@ def test_chain_dp_loop_order_matches_plain(NL, S, P):
 
 def test_chain_dp_wrapper_shapes_and_kernel_args():
     """The wrapper's CPU result is the plain version's, [b, NL, S]; the
-    kernel's argument list names each tensor once, in the C order, with the
-    dtype and shape the kernel reads."""
+    kernel's argument list names each tensor once, in the C order
+    (``_ext.KERNELS["chain_dp"]``), with the dtype and shape the kernel
+    reads: the [b, M] cells, the [n_iv] and [n_iv, P] tables, the
+    outputs."""
     arrays, kw = chain_inputs(5, 9, 3, 4, 2)
     t = _torch(arrays)
     got = tchain.chain_dp(*t, **kw)
@@ -216,10 +294,83 @@ def test_chain_dp_wrapper_shapes_and_kernel_args():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert got[0].shape == (9, 3, 4)
     args = tchain.chain_dp_args(*t, *got, NL=3, S=4)
-    assert len(args) == len(_ext.KERNELS["chain_dp"].tensors)
-    for x, dt, shape in args:
+    names = _ext.KERNELS["chain_dp"].tensors
+    assert names == ("posf", "qposf", "validf", "ub", "mee", "e1", "ol_iv",
+                     "iv_nseg", "seg_end", "seg_next", "dp", "back")
+    assert len(args) == len(names)
+    n_iv = t[7].shape[0]
+    shapes = dict(iv_nseg=(n_iv,), seg_end=(n_iv, 2), seg_next=(n_iv, 2),
+                  dp=(9, 3, 4), back=(9, 3, 4))
+    for (x, dt, shape), name, y in zip(args, names, t + list(got)):
+        assert x is y and shape == shapes.get(name, (9, 12)), name
+        assert dt == (torch.bool if name == "validf" else torch.int32)
         assert x.dtype == dt and tuple(x.shape) == shape \
             and x.is_contiguous()
+    src = _source("chain_dp.cu")
+    sig = re.search(r'extern "C" int cm_chain_dp\(([^)]*)\)', src).group(1)
+    params = [q.split()[-1].lstrip("*") for q in sig.split(",")]
+    assert params == list(names) + list(
+        _ext.KERNELS["chain_dp"].statics) + ["stream"]
+
+
+# --------------------------------------------------------------------------
+# the chain DP: the kernel's shared-memory layout
+# --------------------------------------------------------------------------
+
+def chain_layout(NL, S):
+    """The kernel's layout (row_lanes, row_words): lanes a row G, rows a
+    warp, words a row RW."""
+    G = min(S, 32)
+    base = 3 * NL * S + 3 * NL
+    return G, 32 // G, base + ((S - base) % 32 + 32) % 32
+
+
+def target_loads(NL, S):
+    """Per warp-wide load of the target loops (minpos, scan; one load of
+    each of pos, dp and val at the same offsets) the word each active lane
+    reads: every later list j and target step t0.  Lane i of row wr
+    (wr = lane // G) reads row wr's target t0 + i."""
+    G, n, stride = chain_layout(NL, S)
+    out = []
+    for j in range(1, NL):
+        for t0 in range(0, S, G):
+            out.append([(lane // G) * stride + j * S + t0 + lane % G
+                        for lane in range(32)
+                        if lane // G < n and t0 + lane % G < S])
+    return out
+
+
+def _one_word_per_bank(words):
+    banks = {}
+    for w in words:
+        banks.setdefault(w % 32, set()).add(w)
+    return max(len(v) for v in banks.values()) == 1
+
+
+@pytest.mark.parametrize("NL,S", [(6, 16), (15, 128), (15, 500), (6, 3),
+                                  (4, 64)])
+def test_chain_dp_target_loads_have_no_bank_conflicts(NL, S):
+    """Every shared load of the kernel's target loop reads, per warp, one
+    word per bank or one broadcast word (32 banks of 4 bytes)."""
+    loads = target_loads(NL, S)
+    assert loads
+    for words in loads:
+        assert _one_word_per_bank(words), (NL, S, words)
+    # the layouts the tests mirror are the source's
+    assert chain_layout(6, 16) == (16, 2, 336)   # 306 padded to 16
+    assert chain_layout(15, 500)[:2] == (32, 1)
+
+
+def test_chain_dp_fill_is_conflict_free():
+    """The coalesced fill and write-back meet no bank conflict: each
+    lane's own cell c = i + m G of its row."""
+    for NL, S in ((6, 16), (15, 128), (15, 500), (6, 3), (2, 5), (3, 31)):
+        G, n, stride = chain_layout(NL, S)
+        assert stride % 32 == S % 32
+        for m in range(NL * S // G):
+            assert _one_word_per_bank(
+                [(lane // G) * stride + lane % G + m * G
+                 for lane in range(32) if lane // G < n])
 
 
 # --------------------------------------------------------------------------
@@ -431,6 +582,10 @@ def test_fold_enums_and_constants_follow_python():
 def test_chain_constants_follow_python():
     src = _source("chain_dp.cu")
     assert "constexpr int NEG = -(1 << 29);" in src and NEG == -(1 << 29)
+    # the layout mirror (chain_layout) follows row_lanes and row_words
+    assert "inline int row_lanes(int S) { return S < 32 ? S : 32; }" in src
+    assert """const int base = 3 * NL * S + 3 * NL;
+  return base + ((S - base) % 32 + 32) % 32;""" in src
 
 
 def test_library_hash_covers_every_source(tmp_path, monkeypatch):
@@ -476,7 +631,8 @@ def cuda_device():
 
 def _cases():
     """(name, kernel call, plain call) on the card over both kernels'
-    adversarial inputs, the chain DP at S = 16, 128 and 500."""
+    adversarial inputs, the chain DP at S = 16, 128 and 500 and with ties
+    across a row's warps at S = 600."""
     out = []
     for seed, (b, NL, S, P) in enumerate([(512, 6, 16, 16), (64, 4, 128, 4),
                                           (8, 15, 500, 16), (33, 3, 5, 20)]):
@@ -484,7 +640,13 @@ def _cases():
         t = [x.cuda() for x in _torch(arrays)]
         out.append(("chain_dp", lambda t=t, kw=kw: tchain.chain_dp(*t, **kw),
                     lambda t=t, kw=kw: tchain._chain_dp_plain(*t, **kw)))
-    for seed, (B, P, sl) in enumerate([(4096, 8, 0), (77, 8, 1), (5, 1, 0)]):
+    arrays, kw = chain_dp_warp_ties(np.random.default_rng(9), 16)
+    t = [x.cuda() for x in _torch(arrays)]
+    out.append(("chain_dp", lambda t=t, kw=kw: tchain.chain_dp(*t, **kw),
+                lambda t=t, kw=kw: tchain._chain_dp_plain(*t, **kw)))
+    for seed, (B, P, sl) in enumerate([(4096, 8, 0), (77, 8, 1), (5, 1, 0),
+                                       (1, 8, 0), (31, 8, 1), (33, 8, 0),
+                                       (4097, 8, 1), (40, 16, 0)]):
         arrays, kw = fold_inputs(seed, B, P)
         t = [x.cuda() for x in _torch(arrays)]
         kw = dict(kw, scan_level=sl)

@@ -323,16 +323,16 @@ def test_device_full_step_defer_bits_match_jax(world):
 
 
 def test_seg_compact_reaches_the_prelude(world, jax_blob, monkeypatch):
-    """The port's step forwards seg_compact to the chain prelude (the
-    reference's step drops it), and both forms give the JAX blob."""
+    """The port's step forwards seg_compact to the chain prelude's cells
+    (the reference's step drops it), and both forms give the JAX blob."""
     seen = []
-    prelude = tchain._chain_prelude
+    prelude = tchain._chain_cells
 
     def spy(*a, **kw):
         seen.append(kw["seg_compact"])
         return prelude(*a, **kw)
 
-    monkeypatch.setattr(tchain, "_chain_prelude", spy)
+    monkeypatch.setattr(tchain, "_chain_cells", spy)
     for flag in (True, False):
         got = world.torch_step(seg_compact=flag)
         assert torch.equal(got, torch.from_numpy(np.array(jax_blob))), \
