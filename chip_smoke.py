@@ -21,7 +21,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (mr_pair_fold) bit-equal to their plain versions over adversarial
      inputs: CHAIN_SWEEP (S = 16, 128, 500; NL = 2, 6, 15; P = 3, 16, 20)
      and FOLD_SWEEP (at both scan_levels; read counts ragged against the
-     fold's 32-read blocks); and chain_dp timed beside its
+     fold's 32-read blocks); the walk's kernels (walk_fold, tiny_dp,
+     walk_scan) bit-equal to their plain versions over WALK_SWEEP (every
+     event kind, I32MAX bounds, bands up to w = 62, the main path's pool
+     shapes), eagerly and replayed from a CUDA graph; and chain_dp timed
+     beside its
      plain version and bound at gpu-chain's S = 128 and 500 buckets
      (CHAIN_BUCKETS, which no chr21 read fills);
   3. the seed lookup on the card against the host C++ NativeSeeder on one
@@ -39,10 +43,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   6. the main path, the gpu-full executor (the fused device_full_step
      on the card as one CUDA graph, captured at warm-up and replayed per
      batch; deferred reads replayed on the host) on the same reads: equal
-     to native, with the xdrop, one_side, edit_end, chain_dp and
-     mr_pair_fold kernels each launched on that run, counted per replay
-     (replays times the launches the capture recorded; chain_dp once and
-     mr_pair_fold twice per replay); reported: pairs/s, reads deferred
+     to native, with the xdrop, one_side, edit_end, chain_dp,
+     mr_pair_fold, walk_fold, walk_scan and tiny_dp kernels each launched
+     on that run, counted per replay (replays times the launches the
+     capture recorded; chain_dp once, mr_pair_fold twice, walk_fold and
+     walk_scan four times, tiny_dp five times per replay); reported:
+     pairs/s, reads deferred
      and their causes, and the device-busy share and per-stage device
      time (the cm.* spans) of one torch.profiler run of a map of the
      first 8,192 pairs with the step run eagerly (a replay shows no
@@ -55,7 +61,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      step, run eagerly, with the
      kernels' inputs recorded: launches per step and rows of each kernel,
      each bit-equal to its plain version there and timed, with its bound
-     (the chain DP's and the fold's inputs too);
+     (the chain DP's, the fold's and the walk kernels' inputs too);
   8. stage 2 of the gpu-full path on the card: the BSJ pairs of the
      phase-6 map (sorted as bench.py sorts them) through the port's
      ProcessCirc.run(device_ext=True) (speculate-and-select waves on the
@@ -128,7 +134,8 @@ in phase 8, each counted from the end of its warm-up; launches_contigs in phase 
 gpu-full map and stage 2, counted so too;
 launches_mesh in phase 14's world-1 steps; ms, plain_ms, bound_ms at
 B = 1024 for the DP kernels, at the main path's recorded inputs for
-chain_dp and mr_pair_fold; main_ms per launch at the row counts of the
+chain_dp, mr_pair_fold and the walk's kernels (tiny_dp's at its largest
+pool, phase 1's 4,096 rows); main_ms per launch at the row counts of the
 main path; chain_dp's buckets at CHAIN_BUCKETS).
 """
 
@@ -144,13 +151,19 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED_GENOME, SEED_READS = 20260817, 20260818
 KERNEL_SOURCE = "circminer_tpu_torch/csrc/align_kernels.cu"
+WALK_SOURCE = "circminer_tpu_torch/csrc/walk.cu"
 SOURCES = {"chain_dp": "circminer_tpu_torch/csrc/chain_dp.cu",
-           "mr_pair_fold": "circminer_tpu_torch/csrc/mr_fold.cu"}
+           "mr_pair_fold": "circminer_tpu_torch/csrc/mr_fold.cu",
+           "walk_fold": WALK_SOURCE, "tiny_dp": WALK_SOURCE,
+           "walk_scan": WALK_SOURCE}
+WALK_KERNELS = ("walk_fold", "tiny_dp", "walk_scan")
 DP_KERNELS = ("xdrop", "edit_sc", "edit_end", "one_side")
 # in the gpu-full map
-FULL_KERNELS = ("xdrop", "one_side", "edit_end", "chain_dp", "mr_pair_fold")
+FULL_KERNELS = ("xdrop", "one_side", "edit_end", "chain_dp", "mr_pair_fold",
+                *WALK_KERNELS)
 # launches of one gpu-full step (and so of one replay)
-PER_STEP = {"chain_dp": 1, "mr_pair_fold": 2}
+PER_STEP = {"chain_dp": 1, "mr_pair_fold": 2, "walk_fold": 4, "walk_scan": 4,
+            "tiny_dp": 5}
 # the keys of every line of the reference bench (bench.py:329-343)
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "executor",
               "backend", "n_pairs", "genome_len", "events", "true_events",
@@ -162,6 +175,12 @@ REPLACES = {
     "one_side": "circminer_tpu/ops/align_device.py:122",   # one_side_scan_ref
     "chain_dp": "circminer_tpu/ops/chain.py:251",    # _chain_dp_core_lanes
     "mr_pair_fold": "circminer_tpu/ops/device_full.py:1510",   # pair_body
+    # walk_fold's fori_loop (:628)
+    "walk_fold": "circminer_tpu/ops/device_walk.py:544",
+    # _tiny_end's lax.scan (:113); also device_full.py:101 _tiny_global
+    "tiny_dp": "circminer_tpu/ops/device_walk.py:65",
+    # scan_step, run by fori_loop(0, KSCAN) at :366
+    "walk_scan": "circminer_tpu/ops/device_walk.py:247",
 }
 
 
@@ -666,6 +685,130 @@ def fold_inputs(rng, B, P, *, max_tlen=60):
         max_tlen=max_tlen, contig_num=int(rng.integers(0, 3)))
 
 
+I32MAX = 2 ** 31 - 1
+
+
+def _wrap32(x):
+    """int64 numpy values as int32, with two's-complement wrap-around."""
+    import numpy as np
+    return ((np.asarray(x, np.int64) + 2 ** 31) % 2 ** 32
+            - 2 ** 31).astype(np.int32)
+
+
+def walk_fold_inputs(rng, WPP, N, *, fam, left, ST=8, EW=4):
+    """Adversarial inputs of the walk fold (``walk_fold_lanes``, numpy):
+    every event kind, values from narrow windows (score and pos ties in
+    both update rules), xp exactly at bnd + aux / bnd - aux and at
+    bnd + need / bnd - need for a fifth of the events each, bounds at
+    I32MAX and INT32_MIN, negative ed_th, a pool with lanes of every
+    family (about half of them the folded one's) and dead rows past n_act
+    that repeat live rows' slots."""
+    import numpy as np
+
+    def r(lo, hi, shape):
+        return rng.integers(lo, hi, size=shape).astype(np.int32)
+    n_act = int(min(4 * N, rng.integers(max(1, 3 * WPP // 4), WPP + 1)))
+    n_mine = min(N, n_act // 2)
+    others = np.setdiff1d(np.arange(4 * N), np.arange(fam * N,
+                                                      (fam + 1) * N))
+    live = np.concatenate([rng.choice(N, n_mine, replace=False) + fam * N,
+                           rng.choice(others, n_act - n_mine,
+                                      replace=False)])
+    inv = np.sort(live).astype(np.int32)
+    inv = np.concatenate([inv, inv[r(0, n_act, WPP - n_act)]])
+    ed_th = np.where(rng.random(N) < 0.15, r(-3, 0, N), r(0, 6, N))
+    pick = rng.random(N)
+    bound = np.select([pick < 0.2, pick < 0.4, pick < 0.5],
+                      [I32MAX, -I32MAX - 1, 0], r(80, 140, N)).astype(
+                          np.int32)
+    p_pos, p_len = r(95, 106, WPP), r(30, 60, WPP)
+    shp = (ST * EW, WPP)
+    kind = rng.choice(5, size=shp, p=[0.15, 0.35, 0.1, 0.3, 0.1])
+    aux, xp = r(0, 16, shp), r(60, 150, shp)
+    bnd = bound[inv % N][None, :].astype(np.int64)
+    need = p_len[None, :].astype(np.int64) - aux
+    off = np.where(kind >= 3, need, aux)
+    at = rng.random(shp)
+    xp = np.where(at < 0.2, _wrap32(bnd + off), np.where(
+        at < 0.4, _wrap32(bnd - off), xp))
+    # consec: an end event at the lane's own position
+    xp = np.where((at > 0.8) & (kind >= 3), p_pos[None, :], xp)
+    ev = np.stack([kind.astype(np.int32), xp.astype(np.int32), aux,
+                   r(0, 3, shp), r(-2, 3, shp), r(0, 9, shp),
+                   r(-4, 4, shp)], axis=1)           # [ST * EW, EV_NF, WPP]
+    act = rng.random((ST, WPP)) < 0.75
+    p_live = np.arange(WPP) < n_act
+    lane_defer = rng.random(WPP) < 0.2
+    return ((np.ascontiguousarray(ev), act, inv, np.array(n_act, np.int32),
+             p_live, p_pos, p_len, lane_defer, ed_th.astype(np.int32),
+             bound), dict(fam=fam, left=left, max_ed=4, max_sc=7, band=3))
+
+
+def tiny_dp_inputs(rng, B, w, *, end, L=127):
+    """Adversarial inputs of the tiny DP (``tiny_dp``, numpy): bases from
+    {0, 1} mostly (ties in ed and in |indel| between candidates), N (4)
+    and padding (127) among them, lengths from -1 past the clamp, m near
+    n; END at TN = TM = max(8, 2w + 2), GLOBAL at 4 x 8."""
+    import numpy as np
+    NM, MM = (max(8, 2 * w + 2),) * 2 if end else (4, 8)
+    alphabet = np.array([0, 1] * 7 + [2, 3, 4, 127], np.int8)
+    s = alphabet[rng.integers(0, len(alphabet), (B, L))]
+    t = np.where(rng.random((B, L)) < 0.5, s, alphabet[rng.integers(
+        0, len(alphabet), (B, L))]).astype(np.int8)
+    n = rng.integers(-1, NM + 3, B)
+    m = np.where(rng.random(B) < 0.8, n + rng.integers(-w - 1, w + 2, B),
+                 rng.integers(-1, MM + 3, B))
+    # a third of the rows: 0101... against 1010..., m = n - 1, where the
+    # candidates at indel +d and -d tie (the strict key keeps the first)
+    alt = rng.random(B) < 0.3
+    ph = np.arange(L)[None, :] + rng.integers(0, 2, (B, 1))
+    s = np.where(alt[:, None], ph % 2, s).astype(np.int8)
+    t = np.where(alt[:, None], (ph + 1) % 2, t).astype(np.int8)
+    m = np.where(alt, n - 1, m)
+    return ((s, t, n.astype(np.int32), m.astype(np.int32)),
+            dict(NM=NM, MM=MM, w=w, max_ed=2 + w // 2, end=end))
+
+
+def walk_scan_inputs(rng, STW, WPP, *, NIV=200, NS=300, KSCAN=12):
+    """Adversarial inputs of the interval scan (``walk_scan``, numpy): a
+    genome that ends inside the annotation's last quarter (references out
+    of bounds on the right) and positions near 0 (on the left),
+    transcripts that start before interval 0 and run past the table,
+    t2s states 0, 1 and 2, lanes in every status (mostly scanning), exlen
+    and remref from a window around 0 (empty flushes, negative rr2) and
+    covered near qlen."""
+    import numpy as np
+
+    def r(lo, hi, shape):
+        return rng.integers(lo, hi, size=shape).astype(np.int32)
+    ln = r(1, 40, NIV)
+    spos = np.cumsum(ln + r(0, 30, NIV)).astype(np.int32)
+    epos = (spos + ln - 1).astype(np.int32)
+    G = int(epos[3 * NIV // 4])
+    t2s = rng.choice(3, NS, p=[0.25, 0.35, 0.4]).astype(np.uint8)
+    shp = (STW, WPP)
+    tstart, tlen = r(-2, NIV, shp), r(0, 25, shp)
+    toff = r(-3, NS, shp)
+    i_abs = tstart + r(-2, 27, shp)
+    ivc = np.clip(i_abs, 0, NIV - 1)
+    near0 = rng.random(shp) < 0.1
+    xpos = np.where(near0, r(-3, 30, shp), spos[ivc] + r(-3, 4, shp))
+    qlen = r(10, 100, WPP)
+    covered = np.minimum(r(0, 100, shp), qlen[None, :] + 2)
+    stat = np.where(rng.random(shp) < 0.85, 0, r(1, 6, shp))
+    exlen = np.where(rng.random(shp) < 0.2, 0, r(-2, 80, shp))
+    ws = np.stack([i_abs, xpos, exlen, covered, r(0, 2, shp), stat,
+                   *(r(-5, 100, shp) for _ in range(5)),
+                   r(-10, 120, shp)]).astype(np.int32)
+    # a fifth of the lanes start at their first slot's interval (a left
+    # walk's empty flush)
+    pos = np.where(rng.random(WPP) < 0.2, spos[ivc[0]], r(-5, G + 10, WPP))
+    lane = np.stack([r(0, 2, WPP), qlen, pos])
+    slot = np.stack([tstart, toff, tlen]).astype(np.int32)
+    return ((ws, slot, lane.astype(np.int32), spos, epos, t2s),
+            dict(KSCAN=KSCAN, G=G))
+
+
 # the chain DP's adversarial sweep, (S, NL, P, rows): the gpu-chain
 # buckets' S (16, 128, 500), lists of reads up to 300 bases at k = 20 (NL
 # up to 15), P = seg_pad 16 (registers), 3 and 20 (the scan from memory)
@@ -682,16 +825,22 @@ FOLD_SWEEP = ((4096, 8), (33, 1), (1, 2), (4096, 2), (31, 8), (4097, 8),
 FOLD_STEP_OPS = 100
 
 
-def chain_fold_calls(name, args, kw):
-    """(kernel wrapper call, plain version call) of chain_dp or
-    mr_pair_fold on these arguments."""
+def tensor_kernel_calls(name, args, kw):
+    """(kernel wrapper call, plain version call) of a ``launch_tensors``
+    kernel (chain_dp, mr_pair_fold or one of WALK_KERNELS) on these
+    arguments, each returning a tuple of tensors."""
     from circminer_tpu_torch.ops import chain_device as cd
     from circminer_tpu_torch.ops import device_full as df
-    if name == "chain_dp":
-        return (lambda: cd.chain_dp(*args, **kw),
-                lambda: cd._chain_dp_plain(*args, **kw))
-    return (lambda: df.mr_pair_fold(*args, **kw),
-            lambda: df._mr_pair_fold_plain(*args, **kw))
+    from circminer_tpu_torch.ops import device_walk as dw
+    fns = {"chain_dp": (cd.chain_dp, cd._chain_dp_plain),
+           "mr_pair_fold": (df.mr_pair_fold, df._mr_pair_fold_plain),
+           "walk_fold": (dw.walk_fold_lanes, dw._walk_fold_plain),
+           "tiny_dp": (dw.tiny_dp, dw._tiny_dp_plain),
+           "walk_scan": (dw.walk_scan, dw._walk_scan_plain)}
+    kern, plain = fns[name]
+    if name in WALK_KERNELS:                   # one tensor out
+        return (lambda: (kern(*args, **kw),), lambda: (plain(*args, **kw),))
+    return lambda: kern(*args, **kw), lambda: plain(*args, **kw)
 
 
 def hold_outputs(name, kern, plain, tag=""):
@@ -725,11 +874,11 @@ def phase_chain_fold(device, seed=11):
         arrs, kw = chain_dp_inputs(
             np.random.default_rng(seed + 31 * S + 7 * NL + P), b, NL, S, P)
         args = [torch.from_numpy(a).to(device) for a in arrs]
-        hold_outputs("chain_dp", *chain_fold_calls("chain_dp", args, kw),
+        hold_outputs("chain_dp", *tensor_kernel_calls("chain_dp", args, kw),
                      f" (S={S}, NL={NL}, P={P}, b={b})")
     arrs, kw = chain_dp_warp_ties(np.random.default_rng(seed), 64)
     args = [torch.from_numpy(a).to(device) for a in arrs]
-    hold_outputs("chain_dp", *chain_fold_calls("chain_dp", args, kw),
+    hold_outputs("chain_dp", *tensor_kernel_calls("chain_dp", args, kw),
                  " (ties across a row's warps, S=600)")
     t1 = time.perf_counter()
     for B, P in FOLD_SWEEP:
@@ -737,7 +886,7 @@ def phase_chain_fold(device, seed=11):
             arrs, kw = fold_inputs(
                 np.random.default_rng(seed + B + 10 * P + scan_level), B, P)
             args = [torch.from_numpy(a).to(device) for a in arrs]
-            hold_outputs("mr_pair_fold", *chain_fold_calls(
+            hold_outputs("mr_pair_fold", *tensor_kernel_calls(
                 "mr_pair_fold", args, dict(kw, scan_level=scan_level)),
                 f" (B={B}, P={P}, scan_level={scan_level})")
     log(f"[kernels] chain_dp bit-equal to plain over (S, NL, P, rows) in "
@@ -745,6 +894,71 @@ def phase_chain_fold(device, seed=11):
         f"({t1 - t0:.1f} s); mr_pair_fold over (B, P) in "
         f"{FOLD_SWEEP} x scan_level 0, 1 ({time.perf_counter() - t1:.1f} "
         f"s); adversarial inputs (chain_dp_inputs, fold_inputs)")
+
+
+# the walk kernels' adversarial sweep, per kernel its cases: walk_fold
+# (B, P_MAX, WPP, fam, left) at the main path's B = 4,096 (WPP 6,144) for
+# every family and at ragged shapes; tiny_dp (rows, w, end) at the main
+# path's pools (END on 512 rows, GLOBAL on 4,096 and 8,192) and over bands
+# up to w = 62 (TM = 126: the row in shared memory); walk_scan (STW, WPP,
+# KSCAN) at the main path's 8 x 6,144 and ragged shapes
+WALK_SWEEP = {
+    "walk_fold": ((4096, 8, 6144, 0, True), (4096, 8, 6144, 1, True),
+                  (4096, 8, 6144, 2, False), (4096, 8, 6144, 3, False),
+                  (33, 2, 70, 1, False), (1, 1, 3, 0, True),
+                  (64, 8, 129, 2, True)),
+    "tiny_dp": ((512, 3, True), (4096, 3, False), (8192, 3, False),
+                (1, 0, True), (33, 1, True), (1024, 5, True),
+                (300, 14, True), (257, 31, True), (129, 62, True)),
+    "walk_scan": ((8, 6144, 12), (8, 6144, 1), (3, 33, 30), (1, 1, 12),
+                  (8, 129, 24)),
+}
+
+
+def walk_case(name, spec, device, seed):
+    """(tensors on ``device``, kw) of one WALK_SWEEP case of ``name``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if name == "walk_fold":
+        B, P, WPP, fam, left = spec
+        arrs, kw = walk_fold_inputs(rng, WPP, B * 2 * P, fam=fam, left=left)
+    elif name == "tiny_dp":
+        B, w, end = spec
+        arrs, kw = tiny_dp_inputs(rng, B, w, end=end)
+    else:
+        STW, WPP, KSCAN = spec
+        arrs, kw = walk_scan_inputs(rng, STW, WPP, KSCAN=KSCAN)
+    return [torch.from_numpy(np.require(a, requirements="C")).to(device)
+            for a in arrs], kw
+
+
+def phase_walk(device, seed=17):
+    """Phase 2 for the walk's kernels (walk_fold, tiny_dp, walk_scan): each
+    bit-equal to its plain version on the card over WALK_SWEEP, once
+    eagerly and once replayed from a captured CUDA graph (its outputs
+    overwritten before the replay)."""
+    import torch
+    t0 = time.perf_counter()
+    n = 0
+    for name, specs in WALK_SWEEP.items():
+        for k, spec in enumerate(specs):
+            args, kw = walk_case(name, spec, device, seed + 37 * k)
+            kern, plain = tensor_kernel_calls(name, args, kw)
+            hold_outputs(name, kern, plain, f" ({spec})")
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = kern()
+            for x in out:
+                x.fill_(-7)
+            graph.replay()
+            hold_outputs(name, lambda: out, plain, f" ({spec}, replayed)")
+            n += 1
+    log(f"[kernels] walk_fold, tiny_dp and walk_scan bit-equal to plain, "
+        f"eagerly and replayed from a CUDA graph, over {n} cases "
+        f"{ {k: v for k, v in WALK_SWEEP.items()} } "
+        f"({time.perf_counter() - t0:.1f} s; adversarial inputs: "
+        f"walk_fold_inputs, tiny_dp_inputs, walk_scan_inputs)")
 
 
 # gpu-chain's occupancy buckets above S = 16 at their row chunks
@@ -765,10 +979,10 @@ def phase_chain_buckets(device, seed=13, NL=15, P=16):
         arrs, kw = chain_dp_inputs(np.random.default_rng(seed + S), b, NL,
                                    S, P)
         args = [torch.from_numpy(a).to(device) for a in arrs]
-        kern, plain = chain_fold_calls("chain_dp", args, kw)
+        kern, plain = tensor_kernel_calls("chain_dp", args, kw)
         err = hold_outputs("chain_dp", kern, plain,
                            f" (bucket S={S}, NL={NL}, P={P}, b={b})")
-        bound_ms, bound_by, ops = chain_fold_bound("chain_dp", args, kw)
+        bound_ms, bound_by, ops = tensor_kernel_bound("chain_dp", args, kw)
         r = dict(rows=b, NL=NL, P=P, max_abs_err=err,
                  ms=device_ms(kern, "chain_dp_kernel", 3, warm_s=0.0),
                  plain_ms=cuda_ms(plain, 1), bound_ms=bound_ms,
@@ -858,7 +1072,58 @@ def chain_dp_bytes(posf, qposf, validf, ub, mee, e1, ol_iv, iv_nseg,
             + 4 * int((need > 0).sum()))
 
 
-def chain_fold_bound(name, args, kw):
+# floors of the walk kernels' int32 operations: per event the fold reads
+# (its kind tests, two bound tests with their sums, the candidate's five
+# sums and the update rule's compares and selects), per DP cell of the
+# tiny DP (the mismatch test, three sums, two minima, the column mask),
+# and per scan step (two gathers' clamps, the accumulate, the break, the
+# five window tests, the status chain and the advance)
+FOLD_EVENT_OPS = 30
+TINY_CELL_OPS = 8
+SCAN_STEP_OPS = 60
+
+
+def walk_work(name, args, kw):
+    """(bytes, int32 ops) that a walk kernel needs on these inputs, each
+    input read once and each output written once.  walk_fold: every pool
+    row's inv and n_act, then for each live lane of the family its scalars
+    and the events of its active transcripts; tiny_dp: each row's lengths
+    and the bases and cells inside them; walk_scan: the state in and out,
+    the constants, the annotation's tables, and the steps taken while a
+    slot scans (counted by running the plain version one step at a
+    time)."""
+    import torch
+    from circminer_tpu_torch.ops import device_walk as dw
+    if name == "walk_fold":
+        (events, act, inv, n_act, p_live, _, _, _, ed_th, _) = args
+        N = ed_th.shape[0]
+        ST, WPP = act.shape
+        EW = events.shape[0] // ST
+        rows = torch.arange(WPP, device=inv.device) < n_act
+        mine = rows & (inv // N == kw["fam"]) & p_live
+        n_ev = EW * int((act & mine[None, :]).sum())
+        nbytes = WPP * 4 + 4 + int(mine.sum()) * (18 + ST) \
+            + n_ev * dw.EV_NF * 4 + len(dw.FOLD_OUT) * N * 4
+        return nbytes, n_ev * FOLD_EVENT_OPS
+    if name == "tiny_dp":
+        s, t, n, m = args
+        nn = torch.clamp(n, 0, kw["NM"])
+        mm = torch.clamp(m, 0, kw["MM"])
+        B = s.shape[0]
+        nbytes = B * 8 + int(nn.sum()) + int(mm.sum()) \
+            + B * 4 * (2 if kw["end"] else 1)
+        return nbytes, TINY_CELL_OPS * int((nn.long() * mm.long()).sum())
+    ws, slot, lane, iv_spos, iv_epos, t2s = args
+    steps, cur = 0, ws
+    for _ in range(kw["KSCAN"]):
+        steps += int((cur[dw.WS_KEYS.index("stat")] == dw.WK_SCAN).sum())
+        cur = dw._walk_scan_plain(cur, *args[1:], KSCAN=1, G=kw["G"])
+    nbytes = 2 * ws.numel() * 4 + slot.numel() * 4 + lane.numel() * 4 \
+        + 2 * iv_spos.numel() * 4 + t2s.numel()
+    return nbytes, steps * SCAN_STEP_OPS
+
+
+def tensor_kernel_bound(name, args, kw):
     """(bound ms, what sets it, int32 ops): the bytes these inputs need,
     each read once and each output written once, over HBM bandwidth,
     against the operations over the ALU peak.  The fold reads one
@@ -866,6 +1131,8 @@ def chain_fold_bound(name, args, kw):
     if name == "chain_dp":
         nbytes = chain_dp_bytes(*args, **kw)
         ops = chain_dp_work(*args, **kw)
+    elif name in WALK_KERNELS:
+        nbytes, ops = walk_work(name, args, kw)
     else:
         mr, pairs = args[0], args[1]
         B, _, P, F = pairs.shape
@@ -877,44 +1144,58 @@ def chain_fold_bound(name, args, kw):
             else "operations", ops)
 
 
-def recording_chain_fold(store):
-    """Wrap chain_device.chain_dp and device_full.mr_pair_fold so that the
-    first inputs of each (kernel, rows) are kept in ``store`` and every
-    call is counted there; returns the function that undoes it."""
+def recording_tensor_kernels(store):
+    """Wrap the wrappers of the ``launch_tensors`` kernels (chain_dp,
+    mr_pair_fold, walk_fold_lanes, tiny_dp, walk_scan) where the step
+    calls them, so that the first inputs of each (kernel, rows) are kept in
+    ``store`` and every call is counted there; returns the function that
+    undoes it.  A walk_fold's rows are its pool lanes, walk_scan's its
+    (slot, lane) pairs."""
     from circminer_tpu_torch.ops import chain_device as cd
     from circminer_tpu_torch.ops import device_full as df
-    fns = {"chain_dp": (cd, cd.chain_dp),
-           "mr_pair_fold": (df, df.mr_pair_fold)}
+    from circminer_tpu_torch.ops import device_walk as dw
+    sites = [("chain_dp", cd, "chain_dp"),
+             ("mr_pair_fold", df, "mr_pair_fold"),
+             ("walk_fold", dw, "walk_fold_lanes"), ("tiny_dp", dw, "tiny_dp"),
+             ("tiny_dp", df, "tiny_dp"), ("walk_scan", dw, "walk_scan")]
+    saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in sites]
+
+    def rows(name, args):
+        if name == "walk_fold":
+            return args[1].shape[1]
+        if name == "walk_scan":
+            return args[0].shape[1] * args[0].shape[2]
+        return args[0].shape[0]
 
     def wrap(name, fn):
         def rec(*args, **kw):
-            key = (name, args[0].shape[0])
+            key = (name, rows(name, args))
             if key not in store:
                 store[key] = dict(args=[a.clone() for a in args],
                                   kw=dict(kw), count=0)
             store[key]["count"] += 1
             return fn(*args, **kw)
         return rec
-    for name, (mod, fn) in fns.items():
-        setattr(mod, name, wrap(name, fn))
+    for (name, mod, attr), (_, _, fn) in zip(sites, saved):
+        setattr(mod, attr, wrap(name, fn))
 
     def undo():
-        for name, (mod, fn) in fns.items():
-            setattr(mod, name, fn)
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
     return undo
 
 
-def time_chain_fold(store, where, iters=50):
-    """Per (kernel, rows) of ``store`` (``recording_chain_fold``): its calls
-    ``where``, bit-equality with the plain version on the recorded
+def time_tensor_kernels(store, where, iters=50):
+    """Per (kernel, rows) of ``store`` (``recording_tensor_kernels``): its
+    calls ``where``, bit-equality with the plain version on the recorded
     inputs, its device ms per launch (profiler), the plain version's ms
     (CUDA events) and its bound."""
     res = {}
     for (name, rows), rec in sorted(store.items()):
         args, kw = rec["args"], rec["kw"]
-        kern, plain = chain_fold_calls(name, args, kw)
+        kern, plain = tensor_kernel_calls(name, args, kw)
         err = hold_outputs(name, kern, plain, f" ({where}, {rows} rows)")
-        bound_ms, bound_by, ops = chain_fold_bound(name, args, kw)
+        bound_ms, bound_by, ops = tensor_kernel_bound(name, args, kw)
         r = dict(rows=rows, launches=rec["count"], max_abs_err=err,
                  ms=device_ms(kern, f"{name}_kernel", iters),
                  plain_ms=cuda_ms(plain, 3), bound_ms=bound_ms,
@@ -989,7 +1270,7 @@ def phase_main_shapes(pipe, reads, cfg, batch):
     import torch
     store, store2 = {}, {}
     undo = recording_inputs(store)
-    undo2 = recording_chain_fold(store2)
+    undo2 = recording_tensor_kernels(store2)
     pipe.step_graph = False       # a replay calls no wrapper
     try:
         pipe.map_stream(iter(make_pairs(reads[:batch], cfg)))
@@ -999,7 +1280,7 @@ def phase_main_shapes(pipe, reads, cfg, batch):
         undo()
         undo2()
     where = f"per {batch}-pair step"
-    return time_recorded(store, where), time_chain_fold(store2, where)
+    return time_recorded(store, where), time_tensor_kernels(store2, where)
 
 
 def phase_seg_compact(full, reads, cfg, device, batch=4096):
@@ -1178,6 +1459,9 @@ def c_params(src):
 AB_ROWS = (1024, 4096, 8192, 512)
 AB_CHAIN = ((16, 6, 16384), (128, 15, 2048), (500, 15, 128))
 AB_FOLD = ((4096, 8),)
+AB_WALK = {"walk_fold": ((4096, 8, 6144, 0, True),),
+           "tiny_dp": ((512, 3, True), (4096, 3, False)),
+           "walk_scan": ((8, 6144, 12),)}
 AB_ITERS = {"chain_dp": 20, "mr_pair_fold": 50}
 
 
@@ -1226,6 +1510,18 @@ def ab_cases(names, w=3, seed=19):
         rec = chr21_chain_inputs()
         yield chain_case(f"chr21 step, b={rec['args'][0].shape[0]}",
                          rec["args"], rec["kw"])
+    for name in WALK_KERNELS:
+        if name not in names:
+            continue
+        spec = _ext.KERNELS[name]
+        for k, case in enumerate(AB_WALK[name]):
+            args, kw = walk_case(name, case, torch.device("cuda"), seed + k)
+            kern, plain = tensor_kernel_calls(name, args, kw)
+            got = launch_record(kern)
+            yield (name, str(case),
+                   dict(zip(spec.tensors, got["args"]),
+                        **dict(zip(spec.statics, got["statics"]))),
+                   spec.tensors[-1:], plain())
     if "mr_pair_fold" in names:
         for B, P in AB_FOLD:
             arrs, kw = fold_inputs(np.random.default_rng(seed), B, P)
@@ -1235,6 +1531,23 @@ def ab_cases(names, w=3, seed=19):
                    dict(zip(_ext.KERNELS["mr_pair_fold"].tensors, args),
                         B=B, P=P, **kw),
                    ("mr_out", "aux"), df._mr_pair_fold_plain(*args, **kw))
+
+
+def launch_record(call):
+    """{"args": tensors, "statics": ints} that a wrapper hands
+    ``_ext.launch_tensors`` in ``call()`` (the kernel runs as well)."""
+    from circminer_tpu_torch.ops import _ext
+    got, launch = {}, _ext.launch_tensors
+
+    def rec(name, args, statics):
+        got.update(args=[x for x, _, _ in args], statics=statics)
+        return launch(name, args, statics)
+    _ext.launch_tensors = rec
+    try:
+        call()
+    finally:
+        _ext.launch_tensors = launch
+    return got
 
 
 def chr21_chain_inputs():
@@ -1251,7 +1564,7 @@ def chr21_chain_inputs():
     pipe.warmup()
     pipe.step_graph = False
     store = {}
-    undo = recording_chain_fold(store)
+    undo = recording_tensor_kernels(store)
     try:
         pipe.map_stream(iter(make_pairs(reads[:4096], cfg)))
         torch.cuda.synchronize()
@@ -1297,7 +1610,7 @@ def phase_ab(sources):
         have = [src for src in sources if sym in params[src]]
         for turn in (have, have[::-1]):
             for src in turn:
-                outs = {o: torch.empty_like(x)
+                outs = {o: torch.zeros_like(x)     # walk_fold writes its slots
                         for o, x in zip(out_names, want)}
                 got = dict(vals, **outs)
                 args = [ctypes.c_void_p(v.data_ptr()) if torch.is_tensor(v)
@@ -1647,8 +1960,8 @@ def phase_full(cfg, gi, db, reads, native, device, batch=4096):
           f"gpu-full launches {launches} are not {replays} replays of "
           f"{per_replay}")
     check(all(per_replay[k] == v for k, v in PER_STEP.items()),
-          f"a replay launched {per_replay}, not {PER_STEP} of the chain DP "
-          f"and the fold")
+          f"a replay launched {per_replay}, not {PER_STEP} of the kernels "
+          f"it must launch a fixed number of times")
     fs = copy.deepcopy(pipe.full_stats)   # the profiled run below adds to it
     check(fs["reads"] == len(reads), f"device-full saw {fs['reads']} reads")
     log(f"[gpu-full] {fs['reads']} reads, {fs['deferred']} deferred "
@@ -2449,6 +2762,7 @@ def main() -> int:
         lap("1 device+build")
         kern = phase_kernels(device)
         phase_chain_fold(device)
+        phase_walk(device)
         buckets = phase_chain_buckets(device)
         lap("2 kernels")
         cfg, gi, db, reads, truth = chr21_setup()
@@ -2463,7 +2777,7 @@ def main() -> int:
                                                  device)
         lap("6 gpu-full")
         phase_step_vs_plain(cfg, gi, db, reads, full)
-        main_shapes, chain_fold = phase_main_shapes(full["pipe"], reads,
+        main_shapes, tensor_kern = phase_main_shapes(full["pipe"], reads,
                                                     cfg, 4096)
         lap("7 step vs plain")
         graph = phase_graph(full, reads, cfg, device)
@@ -2530,13 +2844,13 @@ def main() -> int:
     # main_ms: per launch at each row count the gpu-full step sends, and
     # edit_sc's at each row count of the stage-2 waves
     main_shapes.update(s2["shapes"])
-    main_shapes.update(chain_fold)
+    main_shapes.update(tensor_kern)
     main_ms = {name: {str(r["rows"]): r["ms"] for r in main_shapes[name]}
                for name in REPLACES}
-    # the chain DP and the fold: ms, plain ms and bound at the main path's
-    # recorded inputs (their largest row count)
+    # the launch_tensors kernels (chain DP, fold, walk): ms, plain ms and
+    # bound at the main path's recorded inputs (their largest row count)
     for name in SOURCES:
-        kern[name] = max(chain_fold[name], key=lambda r: r["rows"])
+        kern[name] = max(tensor_kern[name], key=lambda r: r["rows"])
     kern["chain_dp"]["buckets"] = buckets
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -62,6 +62,17 @@ KERNELS = {
                             "scan_level"),
         ("mr", "pairs", "o_t", "orient", "live", "stopped", "mr_out",
          "aux")),
+    "walk_fold": Kernel(
+        "cm_walk_fold", ("WPP", "N", "fam", "left", "ST", "EW", "max_ed",
+                         "max_sc", "band"),
+        ("events", "act", "inv", "n_act", "p_live", "p_pos", "p_len",
+         "lane_defer", "ed_th", "bound", "out")),
+    "tiny_dp": Kernel(
+        "cm_tiny_dp", ("B", "Ls", "Lt", "NM", "MM", "w", "max_ed", "end"),
+        ("s", "t", "n", "m", "out")),
+    "walk_scan": Kernel(
+        "cm_walk_scan", ("STW", "WPP", "NIV", "NS", "G", "KSCAN"),
+        ("ws", "slot", "lane", "iv_spos", "iv_epos", "t2s_state", "ws_out")),
 }
 DP_KERNELS = tuple(n for n, k in KERNELS.items() if k.tensors is None)
 I_KERNEL = 128  # DP extent of every kernel: cells i = 0 .. 127 of a diagonal

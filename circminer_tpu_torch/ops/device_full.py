@@ -43,6 +43,7 @@ from ..config import (CONCRD, DISCRD, CHIORF, CHIBSJ, CHI2BSJ, CONGEN,
                       LARIAT2BEGTH)
 from . import _ext
 from .align_device import one_side_batch
+from .device_walk import tiny_dp
 from .pallas_align import POS, xdrop_batch
 
 _i32 = torch.int32
@@ -173,15 +174,14 @@ def _tiny_global(s, t, n, m, NMAX, MMAX):
 def _one_side_pool(s, t, n, m, wv, I, *, w):
     """Exact global_one_side_banded_alignment over a packed pool, for every
     shape the oracle covers (align.py:108-125): n > w -> the ``one_side``
-    kernel, n <= w -> the full tiny DP (w <= 3, m = n + w <= n + 3).  Every
+    kernel, n <= w -> the full tiny DP (``tiny_dp``, ``_tiny_global``'s
+    4 x 8; w <= 3, m = n + w <= n + 3).  Every
     row's wv must lie in [0, w], the kernel's bound."""
     n, m = n.to(_i32).contiguous(), m.to(_i32).contiguous()
     wv = wv.to(_i32).contiguous()
-    banded = one_side_batch(s.contiguous(), t.contiguous(), n, m, wv, w=w,
-                            I=I)
-    TN, TM = 4, 8
-    tiny = _tiny_global(s[:, :TN], t[:, :TM], torch.clamp(n, max=TN),
-                        torch.clamp(m, max=TM), TN, TM)
+    s, t = s.contiguous(), t.contiguous()
+    banded = one_side_batch(s, t, n, m, wv, w=w, I=I)
+    tiny = tiny_dp(s, t, n, m, NM=4, MM=8, end=False)
     return torch.where(n <= wv, tiny, banded)
 
 

@@ -21,8 +21,11 @@ device form runs every walk of the fused step at once:
 * **events**: a lane emits at most one best-update event per wave; the fold
   replays them in (tid, event) order, the host's sequential best fold.
 
-The middle DPs run on the ``edit_end`` kernel (``_end_dp_pool``) and the
-end DPs on the ``xdrop`` kernel; on CPU tensors, their plain versions.
+The middle DPs run on the ``edit_end`` kernel (``_end_dp_pool``, with the
+``tiny_dp`` kernel for the fallback shapes) and the end DPs on the
+``xdrop`` kernel; each wave's interval scan is the ``walk_scan`` kernel and
+each family's fold the ``walk_fold`` kernel (csrc/walk.cu).  On CPU
+tensors, their plain versions.
 Budget overflows (more than EW DPs per lane, scans past EW*KSCAN intervals,
 exhausted pools, more than STW = 8 common transcripts) raise the read's
 DEF_EXTWALK bit, and the read replays on the host: results are exact or
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from . import _ext
 from .align_device import edit_end_batch
 from .pallas_align import POS, xdrop_batch
 
@@ -43,9 +47,15 @@ _i32 = torch.int32
 WK_SCAN, WK_PMID, WK_PTRAIL, WK_PEND, WK_PENDND, WK_DONE = 0, 1, 2, 3, 4, 5
 # event kinds
 EVK_NONE, EVK_MID, EVK_TRAIL, EVK_END, EVK_ENDND = 0, 1, 2, 3, 4
-# event record fields: [kind, xpos, aux(exlen|covered), ed, indel, sclen,
-#                       score]
-EV_NF = 7
+# event record fields (the enums of csrc/walk.cu follow these orders)
+EV_KEYS = ("kind", "xpos", "aux", "ed", "indel", "sclen", "score")
+EV_NF = len(EV_KEYS)       # aux: exlen (middle kinds) or covered (end kinds)
+# the scan state carried across waves, int32 [len(WS_KEYS), STW, WPP]
+# (first as 0 / 1), and the scan's constants per (slot, lane) and per lane
+WS_KEYS = ("i_abs", "xpos", "exlen", "covered", "first", "stat", "pend_iv",
+           "pend_xpos", "pend_exlen", "pend_cov", "pend_rr", "remref")
+SLOT_KEYS = ("tstart", "toff", "tlen")
+LANE_KEYS = ("is_left", "qlen", "pos")
 STW = 8   # packed transcript lanes per walk; more common tids defer
 
 NEG_SCORE = -(10 ** 9)
@@ -103,18 +113,72 @@ def _tiny_end(s, t, n, m, *, w, max_ed, NM, MM):
     return best_ed, best_indel
 
 
+# the widest tiny-DP row the kernel takes: MM + 1 words for each of 32
+# threads in 48 KB of shared memory (csrc/walk.cu::cm_tiny_dp); the pools
+# pass MM <= I - 1 = 127
+TINY_MM_MAX = 48 * 1024 // (4 * 32) - 1
+
+
+def tiny_dp(s, t, n, m, *, NM: int, MM: int, w: int = 0, max_ed: int = 0,
+            end: bool):
+    """The full (unbanded) edit DP of the tiny fallback shapes over a pool:
+    s int8 [B, Ls >= NM], t int8 [B, Lt >= MM], n, m int32 [B], each
+    clamped to NM / MM.  end=True: ``_tiny_end``'s (ed, indel) as int32
+    [B, 2]; end=False: ``_tiny_global``'s dp[n][m] as int32 [B].  On a CPU
+    tensor its plain version (``_tiny_dp_plain``); on a CUDA tensor the
+    ``tiny_dp`` kernel (csrc/walk.cu), or a raise."""
+    kw = dict(NM=NM, MM=MM, w=w, max_ed=max_ed, end=end)
+    if not s.is_cuda:
+        return _tiny_dp_plain(s, t, n, m, **kw)
+    B = s.shape[0]
+    if s.shape[1] < NM or t.shape[1] < MM:
+        raise ValueError(f"tiny_dp reads NM = {NM} / MM = {MM} bases of "
+                         f"rows of {s.shape[1]} / {t.shape[1]}")
+    if MM > TINY_MM_MAX:
+        raise ValueError(f"tiny_dp takes rows of at most {TINY_MM_MAX} "
+                         f"columns, got MM = {MM}")
+    out = torch.empty((B, 2) if end else (B,), dtype=_i32, device=s.device)
+    if B == 0:
+        return out
+    _ext.launch_tensors("tiny_dp", tiny_dp_args(s, t, n, m, out, end=end),
+                        (B, s.shape[1], t.shape[1], NM, MM, w, max_ed,
+                         int(end)))
+    return out
+
+
+def tiny_dp_args(s, t, n, m, out, *, end: bool):
+    """The (tensor, dtype, shape) arguments of the ``tiny_dp`` kernel, in
+    its order."""
+    B = s.shape[0]
+    return [(s, torch.int8, (B, s.shape[1])), (t, torch.int8, (B, t.shape[1])),
+            (n, _i32, (B,)), (m, _i32, (B,)),
+            (out, _i32, (B, 2) if end else (B,))]
+
+
+def _tiny_dp_plain(s, t, n, m, *, NM, MM, w=0, max_ed=0, end):
+    """The plain version of ``tiny_dp``: ``_tiny_end`` or ``_tiny_global``
+    on the first NM / MM columns and the clamped lengths."""
+    sn, tm = s[:, :NM], t[:, :MM]
+    nc, mc = torch.clamp(n, max=NM), torch.clamp(m, max=MM)
+    if not end:
+        from .device_full import _tiny_global
+        return _tiny_global(sn, tm, nc, mc, NM, MM)
+    ed, indel = _tiny_end(sn, tm, nc, mc, w=w, max_ed=max_ed, NM=NM, MM=MM)
+    return torch.stack([ed, indel], dim=1)
+
+
 def _end_dp_pool(s, t, n, m, *, w, max_ed, I):
     """Pooled local_alignment_right (the ``end_r/end_l`` request kind):
-    the ``edit_end`` kernel for the banded regime, the tiny full DP for the
-    fallback shapes (n <= 2w or m <= w, which bounds both dims by 2w).
-    Returns (ed, indel); the request's score is -ed (align.py:188)."""
+    the ``edit_end`` kernel for the banded regime, the tiny full DP
+    (``tiny_dp``) for the fallback shapes (n <= 2w or m <= w, which bounds
+    both dims by 2w).  Returns (ed, indel); the request's score is -ed
+    (align.py:188)."""
     n, m = n.to(_i32).contiguous(), m.to(_i32).contiguous()
-    b_ed, b_in = edit_end_batch(s.contiguous(), t.contiguous(), n, m, w=w,
-                                max_ed=max_ed, I=I)
+    s, t = s.contiguous(), t.contiguous()
+    b_ed, b_in = edit_end_batch(s, t, n, m, w=w, max_ed=max_ed, I=I)
     TN = TM = max(8, 2 * w + 2)
-    t_ed, t_in = _tiny_end(s[:, :TN], t[:, :TM], torch.clamp(n, max=TN),
-                           torch.clamp(m, max=TM), w=w, max_ed=max_ed,
-                           NM=TN, MM=TM)
+    t_ed, t_in = tiny_dp(s, t, n, m, NM=TN, MM=TM, w=w, max_ed=max_ed,
+                         end=True).unbind(1)
     tiny = (n <= 2 * w) | (m <= w)
     return torch.where(tiny, t_ed, b_ed), torch.where(tiny, t_in, b_in)
 
@@ -144,7 +208,6 @@ def walk_waves(act4, pos4, len4, aiv4, row4, qs04, left4, fiv, riv,
     ST = fa.iv_tids.shape[1]
     NIV = ad.iv_spos.shape[0]
     NT = fa.trans_start.shape[0]
-    NS = fa.t2s_state.shape[0]
     G = genome.shape[0]
     RL = seqsf.shape[0]
 
@@ -198,28 +261,20 @@ def walk_waves(act4, pos4, len4, aiv4, row4, qs04, left4, fiv, riv,
 
     shp = act.shape
     is_left = p_left[None, :].expand(shp)
-    i_abs = torch.where(is_left, p_aiv[None, :], p_aiv[None, :] + 1)
-    iend = tstart + tlen - 1                             # right scan end
-    istop = tstart                                       # left scan floor
-    xpos = p_pos[None, :].expand(shp).clone()
     zero = torch.zeros(shp, dtype=_i32, device=dev)
-    exlen = torch.where(is_left, 0, anchor_rem[None, :].expand(shp))
-    covered = zero
-    remref = (p_len + band)[None, :].expand(shp)
-    first = is_left                                      # left first_seg
-    stat = torch.where(act, WK_SCAN, WK_DONE).to(_i32)
-    pend_iv = pend_xpos = pend_exlen = pend_cov = pend_rr = nev = zero
+    st0 = dict(
+        i_abs=torch.where(is_left, p_aiv[None, :], p_aiv[None, :] + 1),
+        xpos=p_pos[None, :].expand(shp),
+        exlen=torch.where(is_left, 0, anchor_rem[None, :].expand(shp)),
+        covered=zero, first=is_left.to(_i32),           # left first_seg
+        stat=torch.where(act, WK_SCAN, WK_DONE).to(_i32),
+        remref=(p_len + band)[None, :].expand(shp))
+    ws = torch.stack([st0.get(k, zero) for k in WS_KEYS])
+    slot = torch.stack([tstart, toff, tlen])             # SLOT_KEYS
+    lane = torch.stack([p_left.to(_i32), p_len, p_pos])  # LANE_KEYS
+    nev = zero
     # events [ST, EW, EV_NF, WPP]; slot e = the lane's e-th emission
     events = torch.zeros((ST, EW, EV_NF, WPP), dtype=_i32, device=dev)
-
-    qlen_b = p_len[None, :].expand(shp)
-    pos_b = p_pos[None, :].expand(shp)
-
-    def t2s_at(iv_abs):
-        row = iv_abs - tstart
-        ok = (row >= 0) & (row < tlen)
-        st = fa.t2s_state[torch.clamp(toff + row, 0, NS - 1).long()]
-        return torch.where(ok, st.to(_i32), 0)
 
     io = torch.arange(I - 1, dtype=_i32, device=dev)
     ew_io = torch.arange(EW, dtype=_i32, device=dev)
@@ -243,92 +298,10 @@ def walk_waves(act4, pos4, len4, aiv4, row4, qs04, left4, fiv, riv,
 
     for _ in range(EW):
         # ---- scan up to KSCAN intervals -------------------------------
-        for _ in range(KSCAN):
-            on = stat == WK_SCAN
-            need = qlen_b - covered
-            ivc = torch.clamp(i_abs, 0, NIV - 1).long()
-            ivs = ad.iv_spos[ivc]
-            ive = ad.iv_epos[ivc]
-            ivl = ive - ivs + 1
-            stt = t2s_at(i_abs)
-
-            # LEFT accumulate (host order: accumulate, break, flush;
-            # extend.py:497-510)
-            l_on = on & is_left
-            ended_l = l_on & (i_abs < istop)
-            l_go = l_on & ~ended_l
-            nz = l_go & (stt != 0)
-            new_exlen = torch.where(nz & first, pos_b - ivs,
-                                    torch.where(nz & ~first, exlen + ivl,
-                                                exlen))
-            xpos = torch.where(nz & ~first & (exlen == 0), ive + 1, xpos)
-            first = torch.where(nz, False, first)
-            # RIGHT: the break check precedes the state read (:384-386)
-            r_on = on & ~is_left
-            ended_r = r_on & (i_abs > iend)
-            r_go = r_on & ~ended_r
-            brk_r = r_go & (exlen >= need)
-            exlen = torch.where(l_go, new_exlen, exlen)
-            brk_l = l_go & (exlen >= need)
-
-            ended = ended_l | ended_r
-            brk = brk_l | brk_r
-
-            # terminal transitions (trailing / end / done)
-            trail_geo = ended & (exlen > 0) & (exlen < need)
-            t_inb = torch.where(is_left,
-                                (xpos - exlen >= 1) & (xpos - 1 <= G),
-                                (xpos + 1 >= 1) & (xpos + exlen <= G))
-            to_trail = trail_geo & t_inb
-            # ref-OOB trailing: the host middle fails -> no event
-            end_geo = (ended | brk) & ~trail_geo & (covered < qlen_b) \
-                & (exlen >= need)
-            rr2 = torch.minimum(remref, exlen)
-            # rr2 can go negative after several indel-bearing flushes
-            # (extend.py:421/545): the host's genome.get(_, len < 0) gives
-            # None -> no DP, but consec is set
-            e_inb = (rr2 >= 0) & torch.where(
-                is_left, (xpos - rr2 >= 1) & (xpos - 1 <= G),
-                (xpos + 1 >= 1) & (xpos + rr2 <= G))
-            to_end = end_geo & e_inb
-            to_endnd = end_geo & ~e_inb      # consec candidate, no DP
-            to_done = (ended | brk) & ~to_trail & ~to_end & ~to_endnd
-
-            # in-loop state-1 flush
-            go = (l_go | r_go) & ~brk
-            flush = go & (stt == 1) & (exlen > 0)
-            m_inb = torch.where(is_left,
-                                (xpos - exlen >= 1) & (xpos - 1 <= G),
-                                (xpos + 1 >= 1) & (xpos + exlen <= G))
-            to_mid = flush & m_inb
-            mid_oob = flush & ~m_inb         # host: the walk fails
-
-            stat = torch.where(
-                to_trail, WK_PTRAIL, torch.where(
-                    to_end, WK_PEND, torch.where(
-                        to_endnd, WK_PENDND, torch.where(
-                            to_mid, WK_PMID, torch.where(
-                                to_done | mid_oob, WK_DONE, stat)))))
-            moved = to_mid | to_trail | to_end | to_endnd
-            pend_iv = torch.where(to_mid, i_abs, pend_iv)
-            pend_xpos = torch.where(moved, xpos, pend_xpos)
-            pend_exlen = torch.where(to_mid | to_trail, exlen, pend_exlen)
-            pend_cov = torch.where(moved, covered, pend_cov)
-            pend_rr = torch.where(to_end, rr2, pend_rr)
-
-            # plain scan advance; a right empty flush sets rspos =
-            # iv_spos - 1, then the state-1 interval accumulates
-            # (extend.py:420-428)
-            adv = go & (stt != 1)
-            r_empty = go & ~is_left & (stt == 1) & (exlen == 0)
-            l_empty = go & is_left & (stt == 1) & (exlen == 0)
-            acc_r = (adv | r_empty) & ~is_left & (stt != 0)
-            exlen = torch.where(acc_r, exlen + ivl, exlen)
-            xpos = torch.where(r_empty, ivs - 1, xpos)
-            step_f = (adv | r_empty) & ~is_left
-            step_b = (adv | l_empty) & is_left
-            i_abs = torch.where(step_f, i_abs + 1,
-                                torch.where(step_b, i_abs - 1, i_abs))
+        ws = walk_scan(ws, slot, lane, ad.iv_spos, ad.iv_epos, fa.t2s_state,
+                       KSCAN=KSCAN, G=G)
+        (i_abs, xpos, exlen, covered, first, stat, pend_iv, pend_xpos,
+         pend_exlen, pend_cov, pend_rr, remref) = ws.unbind(0)
 
         # ---- middle / trailing DP pool (edit_end) ---------------------
         m_act = (stat == WK_PMID) | (stat == WK_PTRAIL)
@@ -443,6 +416,8 @@ def walk_waves(act4, pos4, len4, aiv4, row4, qs04, left4, fiv, riv,
         stat = torch.where(mid_c, WK_SCAN,
                            torch.where(tr_c | end_c | endnd_c, WK_DONE,
                                        stat))
+        ws = torch.stack([i_abs, xpos, exlen, covered, first, stat, pend_iv,
+                          pend_xpos, pend_exlen, pend_cov, pend_rr, remref])
 
     lane_defer = ((stat != WK_DONE) & act).any(dim=0) | over_tid   # [WPP]
     return dict(events=events.reshape(ST * EW, EV_NF, WPP), act=act,
@@ -450,12 +425,169 @@ def walk_waves(act4, pos4, len4, aiv4, row4, qs04, left4, fiv, riv,
                 p_pos=p_pos, p_len=p_len, p_live=p_live, N=N, ST=ST,
                 EW=EW, WPP=WPP)
 
+# --------------------------------------------------------------------------
+# the interval scan of a wave
+# --------------------------------------------------------------------------
+
+def walk_scan(ws, slot, lane, iv_spos, iv_epos, t2s_state, *, KSCAN: int,
+              G: int):
+    """Up to KSCAN interval-scan steps of every (transcript slot, lane) of
+    the walk (the reference's ``scan_step`` in ``fori_loop(0, KSCAN)``).
+    ws int32 [len(WS_KEYS), STW, WPP], the carried state; slot int32
+    [len(SLOT_KEYS), STW, WPP]; lane int32 [len(LANE_KEYS), WPP]; the
+    annotation's iv_spos / iv_epos int32 [NIV] and t2s_state uint8 [NS]; G
+    the genome's length.  Returns the new state, a tensor like ws.  On a
+    CPU tensor its plain version (``_walk_scan_plain``); on a CUDA tensor
+    the ``walk_scan`` kernel (csrc/walk.cu), or a raise."""
+    if not ws.is_cuda:
+        return _walk_scan_plain(ws, slot, lane, iv_spos, iv_epos, t2s_state,
+                                KSCAN=KSCAN, G=G)
+    out = torch.empty_like(ws)
+    _, STW, WPP = ws.shape
+    if STW * WPP == 0:
+        return out
+    _ext.launch_tensors(
+        "walk_scan", walk_scan_args(ws, slot, lane, iv_spos, iv_epos,
+                                    t2s_state, out),
+        (STW, WPP, iv_spos.shape[0], t2s_state.shape[0], G, KSCAN))
+    return out
+
+
+def walk_scan_args(ws, slot, lane, iv_spos, iv_epos, t2s_state, ws_out):
+    """The (tensor, dtype, shape) arguments of the ``walk_scan`` kernel, in
+    its order."""
+    _, STW, WPP = ws.shape
+    shp = (len(WS_KEYS), STW, WPP)
+    return [(ws, _i32, shp), (slot, _i32, (len(SLOT_KEYS), STW, WPP)),
+            (lane, _i32, (len(LANE_KEYS), WPP)),
+            (iv_spos, _i32, (iv_spos.shape[0],)),
+            (iv_epos, _i32, (iv_spos.shape[0],)),
+            (t2s_state, torch.uint8, (t2s_state.shape[0],)),
+            (ws_out, _i32, shp)]
+
+
+def _walk_scan_plain(ws, slot, lane, iv_spos, iv_epos, t2s_state, *, KSCAN,
+                     G):
+    """The plain version of ``walk_scan``: KSCAN steps as torch ops over
+    the whole [STW, WPP] state."""
+    (i_abs, xpos, exlen, covered, first, stat, pend_iv, pend_xpos,
+     pend_exlen, pend_cov, pend_rr, remref) = ws.unbind(0)
+    first = first != 0
+    tstart, toff, tlen = slot.unbind(0)
+    shp = i_abs.shape
+    is_left = (lane[0] != 0)[None, :].expand(shp)
+    qlen_b = lane[1][None, :].expand(shp)
+    pos_b = lane[2][None, :].expand(shp)
+    iend = tstart + tlen - 1                             # right scan end
+    istop = tstart                                       # left scan floor
+    NIV = iv_spos.shape[0]
+    NS = t2s_state.shape[0]
+
+    def t2s_at(iv_abs):
+        row = iv_abs - tstart
+        ok = (row >= 0) & (row < tlen)
+        st = t2s_state[torch.clamp(toff + row, 0, NS - 1).long()]
+        return torch.where(ok, st.to(_i32), 0)
+
+    for _ in range(KSCAN):
+        on = stat == WK_SCAN
+        need = qlen_b - covered
+        ivc = torch.clamp(i_abs, 0, NIV - 1).long()
+        ivs = iv_spos[ivc]
+        ive = iv_epos[ivc]
+        ivl = ive - ivs + 1
+        stt = t2s_at(i_abs)
+
+        # LEFT accumulate (host order: accumulate, break, flush;
+        # extend.py:497-510)
+        l_on = on & is_left
+        ended_l = l_on & (i_abs < istop)
+        l_go = l_on & ~ended_l
+        nz = l_go & (stt != 0)
+        new_exlen = torch.where(nz & first, pos_b - ivs,
+                                torch.where(nz & ~first, exlen + ivl,
+                                            exlen))
+        xpos = torch.where(nz & ~first & (exlen == 0), ive + 1, xpos)
+        first = torch.where(nz, False, first)
+        # RIGHT: the break check precedes the state read (:384-386)
+        r_on = on & ~is_left
+        ended_r = r_on & (i_abs > iend)
+        r_go = r_on & ~ended_r
+        brk_r = r_go & (exlen >= need)
+        exlen = torch.where(l_go, new_exlen, exlen)
+        brk_l = l_go & (exlen >= need)
+
+        ended = ended_l | ended_r
+        brk = brk_l | brk_r
+
+        # terminal transitions (trailing / end / done)
+        trail_geo = ended & (exlen > 0) & (exlen < need)
+        t_inb = torch.where(is_left,
+                            (xpos - exlen >= 1) & (xpos - 1 <= G),
+                            (xpos + 1 >= 1) & (xpos + exlen <= G))
+        to_trail = trail_geo & t_inb
+        # ref-OOB trailing: the host middle fails -> no event
+        end_geo = (ended | brk) & ~trail_geo & (covered < qlen_b) \
+            & (exlen >= need)
+        rr2 = torch.minimum(remref, exlen)
+        # rr2 can go negative after several indel-bearing flushes
+        # (extend.py:421/545): the host's genome.get(_, len < 0) gives
+        # None -> no DP, but consec is set
+        e_inb = (rr2 >= 0) & torch.where(
+            is_left, (xpos - rr2 >= 1) & (xpos - 1 <= G),
+            (xpos + 1 >= 1) & (xpos + rr2 <= G))
+        to_end = end_geo & e_inb
+        to_endnd = end_geo & ~e_inb      # consec candidate, no DP
+        to_done = (ended | brk) & ~to_trail & ~to_end & ~to_endnd
+
+        # in-loop state-1 flush
+        go = (l_go | r_go) & ~brk
+        flush = go & (stt == 1) & (exlen > 0)
+        m_inb = torch.where(is_left,
+                            (xpos - exlen >= 1) & (xpos - 1 <= G),
+                            (xpos + 1 >= 1) & (xpos + exlen <= G))
+        to_mid = flush & m_inb
+        mid_oob = flush & ~m_inb         # host: the walk fails
+
+        stat = torch.where(
+            to_trail, WK_PTRAIL, torch.where(
+                to_end, WK_PEND, torch.where(
+                    to_endnd, WK_PENDND, torch.where(
+                        to_mid, WK_PMID, torch.where(
+                            to_done | mid_oob, WK_DONE, stat)))))
+        moved = to_mid | to_trail | to_end | to_endnd
+        pend_iv = torch.where(to_mid, i_abs, pend_iv)
+        pend_xpos = torch.where(moved, xpos, pend_xpos)
+        pend_exlen = torch.where(to_mid | to_trail, exlen, pend_exlen)
+        pend_cov = torch.where(moved, covered, pend_cov)
+        pend_rr = torch.where(to_end, rr2, pend_rr)
+
+        # plain scan advance; a right empty flush sets rspos =
+        # iv_spos - 1, then the state-1 interval accumulates
+        # (extend.py:420-428)
+        adv = go & (stt != 1)
+        r_empty = go & ~is_left & (stt == 1) & (exlen == 0)
+        l_empty = go & is_left & (stt == 1) & (exlen == 0)
+        acc_r = (adv | r_empty) & ~is_left & (stt != 0)
+        exlen = torch.where(acc_r, exlen + ivl, exlen)
+        xpos = torch.where(r_empty, ivs - 1, xpos)
+        step_f = (adv | r_empty) & ~is_left
+        step_b = (adv | l_empty) & is_left
+        i_abs = torch.where(step_f, i_abs + 1,
+                            torch.where(step_b, i_abs - 1, i_abs))
+    return torch.stack([i_abs, xpos, exlen, covered, first.to(_i32), stat,
+                        pend_iv, pend_xpos, pend_exlen, pend_cov, pend_rr,
+                        remref])
+
 
 # --------------------------------------------------------------------------
 # the per-family fold: replay events against (ed_th, bound)
 # --------------------------------------------------------------------------
 
 KEYS = ("pos", "ed", "sclen", "indel", "qcov", "score")
+# the rows of the fold's int32 [len(FOLD_OUT), N] output (the enum FoldOut
+# of csrc/walk.cu)
+FOLD_OUT = KEYS + ("consec", "defer")
 
 
 def walk_fold(wk, fam: int, ed_th, bound, *, max_ed, max_sc, band,
@@ -464,18 +596,76 @@ def walk_fold(wk, fam: int, ed_th, bound, *, max_ed, max_sc, band,
     extend's actual ed_th/bound (both [B, 2, P]).  Returns (best dict,
     consec, defer), each [B, 2, P]; callers mask with their own active-lane
     set."""
+    shp3 = ed_th.shape
+    out = walk_fold_lanes(
+        wk["events"], wk["act"], wk["inv"], wk["n_act"], wk["p_live"],
+        wk["p_pos"], wk["p_len"], wk["lane_defer"], ed_th.reshape(-1),
+        bound.reshape(-1), fam=fam, left=left, max_ed=max_ed,
+        max_sc=max_sc, band=band).reshape(len(FOLD_OUT), *shp3)
+    best = dict(zip(KEYS, out.unbind(0)))
+    over4 = wk["over"].reshape(4, *shp3)[fam]
+    return best, out[6] != 0, (out[7] != 0) | over4
+
+
+def walk_fold_lanes(events, act, inv, n_act, p_live, p_pos, p_len,
+                    lane_defer, ed_th, bound, *, fam: int, left: bool,
+                    max_ed: int, max_sc: int, band: int):
+    """The fold of family ``fam`` (the reference's ``walk_fold`` loop, then
+    its scatter to pair slots): events int32 [ST * EW, EV_NF, WPP]; act
+    bool [ST, WPP]; inv int32 [WPP] (pool row -> flat 4N slot), n_act
+    int32 0-d; p_live, lane_defer bool [WPP]; p_pos, p_len int32 [WPP];
+    ed_th, bound int32 [N].  Returns int32 [len(FOLD_OUT), N]: each slot
+    of the family the best fields, consec and defer (0 / 1) of its live
+    lane, zeros elsewhere.  On a CPU tensor its plain version
+    (``_walk_fold_plain``); on a CUDA tensor the ``walk_fold`` kernel
+    (csrc/walk.cu), or a raise."""
+    kw = dict(fam=fam, left=left, max_ed=max_ed, max_sc=max_sc, band=band)
+    if not events.is_cuda:
+        return _walk_fold_plain(events, act, inv, n_act, p_live, p_pos,
+                                p_len, lane_defer, ed_th, bound, **kw)
+    N = ed_th.shape[0]
+    ST, WPP = act.shape
+    out = torch.zeros((len(FOLD_OUT), N), dtype=_i32, device=events.device)
+    if WPP * N * ST == 0:
+        return out
+    _ext.launch_tensors(
+        "walk_fold", walk_fold_args(events, act, inv, n_act, p_live, p_pos,
+                                    p_len, lane_defer, ed_th, bound, out),
+        (WPP, N, fam, int(left), ST, events.shape[0] // ST, max_ed, max_sc,
+         band))
+    return out
+
+
+def walk_fold_args(events, act, inv, n_act, p_live, p_pos, p_len,
+                   lane_defer, ed_th, bound, out):
+    """The (tensor, dtype, shape) arguments of the ``walk_fold`` kernel, in
+    its order."""
+    ST, WPP = act.shape
+    N = ed_th.shape[0]
+    EW = events.shape[0] // max(ST, 1)
+    i32, b8 = _i32, torch.bool
+    return [(events, i32, (ST * EW, EV_NF, WPP)), (act, b8, (ST, WPP)),
+            (inv, i32, (WPP,)), (n_act, i32, ()), (p_live, b8, (WPP,)),
+            (p_pos, i32, (WPP,)), (p_len, i32, (WPP,)),
+            (lane_defer, b8, (WPP,)), (ed_th, i32, (N,)),
+            (bound, i32, (N,)), (out, i32, (len(FOLD_OUT), N))]
+
+
+def _walk_fold_plain(events, act, inv, n_act, p_live, p_pos, p_len,
+                     lane_defer, ed_th, bound, *, fam, left, max_ed, max_sc,
+                     band):
+    """The plain version of ``walk_fold_lanes``: the fold's ST * EW steps as
+    torch ops over every pool lane, then ``_scatter_pool``."""
     from .device_full import _scatter_pool
 
-    N, ST, EW = wk["N"], wk["ST"], wk["EW"]
-    shp3 = ed_th.shape
-    inv = wk["inv"]
+    N = ed_th.shape[0]
+    ST = act.shape[0]
+    EW = events.shape[0] // ST
     lane_n = (inv % N).long()
-    mine = ((inv // N) == fam) & wk["p_live"]
-    eth = ed_th.reshape(-1)[lane_n]
-    bnd = bound.reshape(-1)[lane_n]
-    pos = wk["p_pos"]
-    qlen = wk["p_len"]
-    events = wk["events"]                                # [ST*EW, NF, WPP]
+    mine = ((inv // N) == fam) & p_live
+    eth = ed_th[lane_n]
+    bnd = bound[lane_n]
+    pos, qlen = p_pos, p_len
     zero = torch.zeros_like(pos)
 
     # initial best: extend.py:609/663 best.set(pos, edth+1, len+1, w+1, 0, 0)
@@ -489,7 +679,7 @@ def walk_fold(wk, fam: int, ed_th, bound, *, max_ed, max_sc, band,
     for s in range(ST * EW):
         if s % EW == 0:                                  # next transcript
             curr = curr0
-            alive = wk["act"][s // EW] & mine
+            alive = act[s // EW] & mine
         kind, xp, aux, ed, indel, sclen, scr = events[s].unbind(0)
 
         is_mid = (kind == EVK_MID) | (kind == EVK_TRAIL)
@@ -521,16 +711,10 @@ def walk_fold(wk, fam: int, ed_th, bound, *, max_ed, max_sc, band,
         best = _fold_update_score(best, curr, dp_ok, left)
         alive = alive & ~is_end
 
-    def sc(v):
-        out = _scatter_pool(torch.where(mine, v.to(_i32), 0), inv,
-                            wk["n_act"], 4 * N)
-        return out[fam * N:(fam + 1) * N].reshape(shp3)
-
-    out_best = {k: sc(v) for k, v in best.items()}
-    out_consec = sc(consec) != 0
-    out_defer = sc(wk["lane_defer"] & mine) != 0
-    over4 = wk["over"].reshape(4, -1)[fam].reshape(shp3)
-    return out_best, out_consec, out_defer | over4
+    rows = [best[k] for k in KEYS] + [consec, lane_defer & mine]
+    vals = torch.stack([torch.where(mine, v.to(_i32), 0) for v in rows])
+    out = torch.stack([_scatter_pool(v, inv, n_act, 4 * N) for v in vals])
+    return out[:, fam * N:(fam + 1) * N]
 
 
 def _fold_update_dir(best, cand, mask, max_ed, max_sc, left):

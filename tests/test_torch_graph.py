@@ -1,12 +1,13 @@
 """The gpu-full step as one captured CUDA graph (``ops/step_graph.py``).
 
 On the CPU: a sync audit of ``device_full_step`` (one step of
-tests/test_torch_full.py's tiny world with the six kernel wrappers stubbed
+tests/test_torch_full.py's tiny world with the nine kernel wrappers stubbed
 to their output shapes, under a TorchDispatchMode: no op that makes the
 host wait for the card, no boolean-mask indexing, every lifted scalar from
 a named site, each kernel wrapper called as often as a replay counts it
-and handed the dtypes and shapes its kernel takes, and the chain DP's and
-the pair steps' spans free of unrolled loops); the runner's refusal of
+and handed the dtypes and shapes its kernel takes, and the chain DP's, the
+pair steps', the walk scan's and the walk fold's spans free of unrolled
+loops); the runner's refusal of
 the CPU; its key; the tracing flag the pipeline reads; and the CPU
 pipeline's eager plain step, bit-equal to a direct call of the step.
 
@@ -64,7 +65,8 @@ LIFT_SITES = {
 }
 # kernel launches of one step (PERF.md's per-step counts)
 PER_STEP = {"xdrop": 5, "edit_end": 4, "one_side": 1, "edit_sc": 0,
-            "chain_dp": 1, "mr_pair_fold": 2}
+            "chain_dp": 1, "mr_pair_fold": 2, "walk_fold": 4, "walk_scan": 4,
+            "tiny_dp": 5}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -136,9 +138,9 @@ def _kernel_args_ok(args):
 
 
 def _stubs(calls):
-    """The six kernel wrappers as they are called from the step, each
-    returning zeros of its output shape and counting its calls; the chain
-    DP's and the fold's check the arguments their kernels would get."""
+    """The nine kernel wrappers as they are called from the step, each
+    returning zeros of its output shape and counting its calls; all but
+    the four DP kernels' check the arguments their kernels would get."""
     def out(name, s, k):
         calls[name] += 1
         z = torch.zeros(s.shape[0], dtype=torch.int32, device=s.device)
@@ -157,6 +159,26 @@ def _stubs(calls):
         _kernel_args_ok(tfull.mr_pair_fold_args(mr, *args, mr, aux))
         return mr, aux
 
+    def walk_fold_lanes(*args, **kw):
+        calls["walk_fold"] += 1
+        out = torch.zeros((len(twalk.FOLD_OUT), args[8].shape[0]),
+                          dtype=torch.int32)
+        _kernel_args_ok(twalk.walk_fold_args(*args, out))
+        return out
+
+    def walk_scan(ws, *args, **kw):
+        calls["walk_scan"] += 1
+        out = torch.zeros_like(ws)
+        _kernel_args_ok(twalk.walk_scan_args(ws, *args, out))
+        return out
+
+    def tiny_dp(s, t, n, m, *, end, **kw):
+        calls["tiny_dp"] += 1
+        out = torch.zeros((s.shape[0], 2) if end else (s.shape[0],),
+                          dtype=torch.int32)
+        _kernel_args_ok(twalk.tiny_dp_args(s, t, n, m, out, end=end))
+        return out
+
     return {
         (tfull, "one_side_batch"): lambda s, *a, **kw: out("one_side", s, 1),
         (tfull, "xdrop_batch"): lambda s, *a, **kw: out("xdrop", s, 3),
@@ -164,6 +186,10 @@ def _stubs(calls):
         (twalk, "edit_end_batch"): lambda s, *a, **kw: out("edit_end", s, 2),
         (tchain, "chain_dp"): chain_dp,
         (tfull, "mr_pair_fold"): mr_pair_fold,
+        (twalk, "walk_fold_lanes"): walk_fold_lanes,
+        (twalk, "walk_scan"): walk_scan,
+        (twalk, "tiny_dp"): tiny_dp,
+        (tfull, "tiny_dp"): tiny_dp,
     }
 
 
@@ -192,8 +218,11 @@ def test_fused_step_never_waits_for_the_device(world, monkeypatch):
     """One step of the tiny world under a TorchDispatchMode: none of the
     ops that read a device value back to the host, no boolean-mask
     indexing, every lifted scalar from a named site, and the kernels
-    launched 5 (xdrop), 4 (edit_end), 1 (one_side), 1 (chain_dp) and 2
-    (mr_pair_fold) times."""
+    launched 5 (xdrop), 4 (edit_end), 1 (one_side), 1 (chain_dp), 2
+    (mr_pair_fold), 4 (walk_fold), 4 (walk_scan) and 5 (tiny_dp) times.
+    The step dispatches 8,062 aten ops with the kernels stubbed (39,031
+    before the walk's kernels); the floor shows that the audit saw all
+    of it."""
     blob, audit, calls = _audited_step(world, monkeypatch)
     assert tuple(blob.shape) == (BATCH, tfull.MRF + 1)
     assert not audit.syncing, Counter(audit.syncing)
@@ -204,7 +233,29 @@ def test_fused_step_never_waits_for_the_device(world, monkeypatch):
     print(f"device_full_step at B = {BATCH}, kernels stubbed: {total} aten "
           f"ops per step; top {audit.ops.most_common(5)}; by innermost "
           f"span {audit.by_span.most_common()}")
-    assert total > 10_000
+    assert total > 7_000
+
+
+def test_walk_scan_and_fold_are_one_kernel_each(world, monkeypatch):
+    """With the kernels stubbed, cm.walk_fold dispatches a handful of aten
+    ops per family (its zero-filled output, the reshapes and the pool
+    overflow's or), and cm.walk_waves as many at twice the world's KSCAN:
+    the card path unrolls neither the fold's events nor the scan's steps.
+    The walk's two spans take under 3,000 ops (32,183 before the walk's
+    kernels)."""
+    K = world.statics["KSCAN"]
+    by_k = {}
+    for kscan in (K, 2 * K):
+        _, audit, calls = _audited_step(world, monkeypatch, KSCAN=kscan)
+        assert (calls["walk_fold"], calls["walk_scan"], calls["tiny_dp"]) \
+            == (4, 4, 5)
+        by_k[kscan] = audit.by_span
+    walk, fold = by_k[K]["cm.walk_waves"], by_k[K]["cm.walk_fold"]
+    print(f"cm.walk_waves {walk}, cm.walk_fold {fold} aten ops per step")
+    assert 0 < fold <= 4 * 16, fold
+    assert 0 < walk == by_k[2 * K]["cm.walk_waves"], \
+        (walk, by_k[2 * K]["cm.walk_waves"])
+    assert walk + fold < 3_000
 
 
 def test_chain_dp_and_pair_steps_are_one_kernel_each(world, monkeypatch):
