@@ -24,7 +24,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      fold's 32-read blocks); the walk's kernels (walk_fold, tiny_dp,
      walk_scan) bit-equal to their plain versions over WALK_SWEEP (every
      event kind, I32MAX bounds, bands up to w = 62, the main path's pool
-     shapes), eagerly and replayed from a CUDA graph; and chain_dp timed
+     shapes, tiny-DP pools where no row, half and every row falls back),
+     eagerly and replayed from a CUDA graph; and chain_dp timed
      beside its
      plain version and bound at gpu-chain's S = 128 and 500 buckets
      (CHAIN_BUCKETS, which no chr21 read fills);
@@ -61,7 +62,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      step, run eagerly, with the
      kernels' inputs recorded: launches per step and rows of each kernel,
      each bit-equal to its plain version there and timed, with its bound
-     (the chain DP's, the fold's and the walk kernels' inputs too);
+     (the chain DP's, the fold's and the walk kernels' inputs too; each
+     walk kernel beside an empty kernel on its grid, the [launch-floor]
+     line, and with the fallback rows of tiny_dp's pools and the fold's
+     live lanes per family);
   8. stage 2 of the gpu-full path on the card: the BSJ pairs of the
      phase-6 map (sorted as bench.py sorts them) through the port's
      ProcessCirc.run(device_ext=True) (speculate-and-select waves on the
@@ -237,9 +241,10 @@ def cuda_ms(fn, iters, warm_s=0.0):
 PRIMER_LOST = []
 
 
-def device_ms(fn, kernel, iters, warm_s=0.2, primer=512):
+def device_ms(fn, kernel, iters, warm_s=0.2, primer=512, rest=False):
     """Mean device time per launch of the CUDA kernel whose symbol holds
-    ``kernel``, over iters calls of fn, from the profiler's device events:
+    ``kernel`` (with ``rest``, plus every other device record of fn's
+    calls), over iters calls of fn, from the profiler's device events:
     a kernel shorter than its wrapper's host cost would otherwise be timed
     at the rate the host can launch it.  Once a process has traced a long
     run, the tracer drops the device records of the first launches of each
@@ -261,12 +266,15 @@ def device_ms(fn, kernel, iters, warm_s=0.2, primer=512):
             torch.cuda.synchronize()
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         ev = [e for e in dev if kernel in e.name]
+        n_kern = len(ev)
         PRIMER_LOST.append(primer - sum("spin_kernel" in e.name for e in dev))
         if len(ev) >= iters * 9 // 10:
             break
     check(len(ev) >= iters * 9 // 10, f"the profiler saw {len(ev)} "
           f"launches of {kernel} in {iters} calls, three times")
-    return sum(e.time_range.elapsed_us() for e in ev) / len(ev) / 1e3
+    if rest:
+        ev = [e for e in dev if "spin_kernel" not in e.name]
+    return sum(e.time_range.elapsed_us() for e in ev) / n_kern / 1e3
 
 
 # --------------------------------------------------------------------------
@@ -744,11 +752,14 @@ def walk_fold_inputs(rng, WPP, N, *, fam, left, ST=8, EW=4):
              bound), dict(fam=fam, left=left, max_ed=4, max_sc=7, band=3))
 
 
-def tiny_dp_inputs(rng, B, w, *, end, L=127):
+def tiny_dp_inputs(rng, B, w, *, end, share=1.0, L=127):
     """Adversarial inputs of the tiny DP (``tiny_dp``, numpy): bases from
     {0, 1} mostly (ties in ed and in |indel| between candidates), N (4)
     and padding (127) among them, lengths from -1 past the clamp, m near
-    n; END at TN = TM = max(8, 2w + 2), GLOBAL at 4 x 8."""
+    n; END at TN = TM = max(8, 2w + 2), GLOBAL at 4 x 8.  A share of the
+    rows (0, 1 or between) falls back to the tiny DP; the others carry a
+    banded answer to pass through, from a narrow window and int32's
+    ends."""
     import numpy as np
     NM, MM = (max(8, 2 * w + 2),) * 2 if end else (4, 8)
     alphabet = np.array([0, 1] * 7 + [2, 3, 4, 127], np.int8)
@@ -765,7 +776,12 @@ def tiny_dp_inputs(rng, B, w, *, end, L=127):
     s = np.where(alt[:, None], ph % 2, s).astype(np.int8)
     t = np.where(alt[:, None], (ph + 1) % 2, t).astype(np.int8)
     m = np.where(alt, n - 1, m)
-    return ((s, t, n.astype(np.int32), m.astype(np.int32)),
+    tiny = rng.random(B) < share
+    shape = (B, 2) if end else (B,)
+    banded = np.where(rng.random(shape) < 0.1, rng.choice(
+        [I32MAX, -I32MAX - 1, 10 ** 7], shape), rng.integers(-9, 10, shape))
+    return ((s, t, n.astype(np.int32), m.astype(np.int32), tiny,
+             banded.astype(np.int32)),
             dict(NM=NM, MM=MM, w=w, max_ed=2 + w // 2, end=end))
 
 
@@ -897,19 +913,24 @@ def phase_chain_fold(device, seed=11):
 
 
 # the walk kernels' adversarial sweep, per kernel its cases: walk_fold
-# (B, P_MAX, WPP, fam, left) at the main path's B = 4,096 (WPP 6,144) for
-# every family and at ragged shapes; tiny_dp (rows, w, end) at the main
-# path's pools (END on 512 rows, GLOBAL on 4,096 and 8,192) and over bands
-# up to w = 62 (TM = 126: the row in shared memory); walk_scan (STW, WPP,
-# KSCAN) at the main path's 8 x 6,144 and ragged shapes
+# (B, P_MAX, WPP, fam, left[, EW = 4]) at the main path's B = 4,096 (WPP
+# 6,144) for every family and at ragged shapes; tiny_dp (rows, w, end, share of
+# fallback rows) at the main path's pools (END on 512 rows, GLOBAL on
+# 4,096 and 8,192) with no row, half the rows and every row falling back,
+# and over bands up to w = 62 (TM = 126: the row in shared memory);
+# walk_scan (STW, WPP, KSCAN) at the main path's 8 x 6,144 and ragged
+# shapes
 WALK_SWEEP = {
     "walk_fold": ((4096, 8, 6144, 0, True), (4096, 8, 6144, 1, True),
                   (4096, 8, 6144, 2, False), (4096, 8, 6144, 3, False),
                   (33, 2, 70, 1, False), (1, 1, 3, 0, True),
-                  (64, 8, 129, 2, True)),
-    "tiny_dp": ((512, 3, True), (4096, 3, False), (8192, 3, False),
-                (1, 0, True), (33, 1, True), (1024, 5, True),
-                (300, 14, True), (257, 31, True), (129, 62, True)),
+                  (64, 8, 129, 2, True), (64, 8, 129, 3, False, 7)),
+    "tiny_dp": ((512, 3, True, 0.0), (512, 3, True, 0.5),
+                (512, 3, True, 1.0), (4096, 3, False, 0.0),
+                (4096, 3, False, 0.5), (4096, 3, False, 1.0),
+                (8192, 3, False, 0.5), (1, 0, True, 1.0), (33, 1, True, 0.5),
+                (1024, 5, True, 0.5), (300, 14, True, 1.0),
+                (257, 31, True, 0.5), (129, 62, True, 1.0)),
     "walk_scan": ((8, 6144, 12), (8, 6144, 1), (3, 33, 30), (1, 1, 12),
                   (8, 129, 24)),
 }
@@ -921,11 +942,12 @@ def walk_case(name, spec, device, seed):
     import torch
     rng = np.random.default_rng(seed)
     if name == "walk_fold":
-        B, P, WPP, fam, left = spec
-        arrs, kw = walk_fold_inputs(rng, WPP, B * 2 * P, fam=fam, left=left)
+        B, P, WPP, fam, left, *EW = spec
+        arrs, kw = walk_fold_inputs(rng, WPP, B * 2 * P, fam=fam, left=left,
+                                    EW=EW[0] if EW else 4)
     elif name == "tiny_dp":
-        B, w, end = spec
-        arrs, kw = tiny_dp_inputs(rng, B, w, end=end)
+        B, w, end, share = spec
+        arrs, kw = tiny_dp_inputs(rng, B, w, end=end, share=share)
     else:
         STW, WPP, KSCAN = spec
         arrs, kw = walk_scan_inputs(rng, STW, WPP, KSCAN=KSCAN)
@@ -1087,8 +1109,10 @@ def walk_work(name, args, kw):
     """(bytes, int32 ops) that a walk kernel needs on these inputs, each
     input read once and each output written once.  walk_fold: every pool
     row's inv and n_act, then for each live lane of the family its scalars
-    and the events of its active transcripts; tiny_dp: each row's lengths
-    and the bases and cells inside them; walk_scan: the state in and out,
+    and the events of its active transcripts; tiny_dp: every row's tiny
+    bit and answer; a fallback row's lengths and the bases and cells
+    inside them, another row's banded answer; walk_scan: the state in and
+    out,
     the constants, the annotation's tables, and the steps taken while a
     slot scans (counted by running the plain version one step at a
     time)."""
@@ -1106,12 +1130,13 @@ def walk_work(name, args, kw):
             + n_ev * dw.EV_NF * 4 + len(dw.FOLD_OUT) * N * 4
         return nbytes, n_ev * FOLD_EVENT_OPS
     if name == "tiny_dp":
-        s, t, n, m = args
-        nn = torch.clamp(n, 0, kw["NM"])
-        mm = torch.clamp(m, 0, kw["MM"])
-        B = s.shape[0]
-        nbytes = B * 8 + int(nn.sum()) + int(mm.sum()) \
-            + B * 4 * (2 if kw["end"] else 1)
+        s, t, n, m, tiny, banded = args
+        nn = torch.clamp(n[tiny], 0, kw["NM"])
+        mm = torch.clamp(m[tiny], 0, kw["MM"])
+        B, nf = s.shape[0], int(tiny.sum())
+        word = 4 * (2 if kw["end"] else 1)
+        nbytes = B + B * word + (B - nf) * word + nf * 8 \
+            + int(nn.sum()) + int(mm.sum())
         return nbytes, TINY_CELL_OPS * int((nn.long() * mm.long()).sum())
     ws, slot, lane, iv_spos, iv_epos, t2s = args
     steps, cur = 0, ws
@@ -1185,11 +1210,68 @@ def recording_tensor_kernels(store):
     return undo
 
 
+# csrc/walk.cu's WalkKernel: the kernel whose grid cm_walk_empty takes
+WALK_EMPTY = {"walk_fold": 0, "tiny_dp": 1, "walk_scan": 2}
+
+
+def walk_floor_ms(name, args, kw, iters=50):
+    """Device ms of an empty kernel launched on the grid that the walk
+    kernel ``name`` takes for these inputs (csrc/walk.cu::cm_walk_empty):
+    the launch's share of that kernel's time."""
+    import ctypes
+    import torch
+    from circminer_tpu_torch.ops import _ext
+    fn = _ext._load().cm_walk_empty
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if name == "walk_fold":
+        rows, NM, MM = args[1].shape[1], 0, 0
+    elif name == "tiny_dp":
+        rows, NM, MM = args[0].shape[0], kw["NM"], kw["MM"]
+    else:
+        rows, NM, MM = args[0].shape[1] * args[0].shape[2], 0, 0
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        check(fn(WALK_EMPTY[name], rows, NM, MM, stream) == 0,
+              f"the empty kernel on {name}'s grid failed to launch")
+    return device_ms(call, "walk_empty_kernel", iters)
+
+
+def walk_shares(name, args):
+    """What the walk kernels' recorded inputs ask of them: tiny_dp's rows
+    that fall back to the DP; the fold's live lanes per family (all four
+    share one pool), whether each family's lanes are one contiguous run
+    of pool rows, and the share of active transcripts of its lanes."""
+    import torch
+    if name == "tiny_dp":
+        tiny = args[4]
+        return dict(fallback_rows=int(tiny.sum()),
+                    fallback_share=float(tiny.float().mean()))
+    if name != "walk_fold":
+        return {}
+    events, act, inv, n_act, p_live = args[:5]
+    N = args[8].shape[0]
+    live = (torch.arange(inv.shape[0], device=inv.device) < n_act) & p_live
+    fam = torch.where(live, inv // N, -1)
+    lanes, runs, act_share = [], [], []
+    for f in range(4):
+        rows = (fam == f).nonzero()[:, 0]
+        lanes.append(int(rows.numel()))
+        runs.append(bool(rows.numel() == 0
+                         or int(rows[-1] - rows[0]) + 1 == rows.numel()))
+        act_share.append(float(act[:, rows].float().mean())
+                         if rows.numel() else 0.0)
+    return dict(pool_rows=inv.shape[0], family_lanes=lanes,
+                family_contiguous=runs, family_active_share=act_share)
+
+
 def time_tensor_kernels(store, where, iters=50):
     """Per (kernel, rows) of ``store`` (``recording_tensor_kernels``): its
     calls ``where``, bit-equality with the plain version on the recorded
     inputs, its device ms per launch (profiler), the plain version's ms
-    (CUDA events) and its bound."""
+    (CUDA events) and its bound; for the walk's kernels the launch floor
+    of their grid and what their inputs ask of them (``walk_shares``)."""
     res = {}
     for (name, rows), rec in sorted(store.items()):
         args, kw = rec["args"], rec["kw"]
@@ -1200,11 +1282,21 @@ def time_tensor_kernels(store, where, iters=50):
                  ms=device_ms(kern, f"{name}_kernel", iters),
                  plain_ms=cuda_ms(plain, 3), bound_ms=bound_ms,
                  bound_by=bound_by, ops=ops)
+        if name in WALK_KERNELS:
+            shares = walk_shares(name, args)
+            r.update(floor_ms=walk_floor_ms(name, args, kw), **shares)
+            if shares:
+                log(f"[main-shapes] {name}'s inputs at {rows} rows: "
+                    f"{shares}")
         res.setdefault(name, []).append(r)
         log(f"[main-shapes] {name} x{rec['count']} {where} at {rows} rows "
             f"({kw}): bit-equal to plain; "
             f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms; bound "
             f"{bound_ms:.6f} ms ({bound_by}, {ops} int32 ops)")
+    floors = {f"{name} at {r['rows']}": (r["ms"], r["floor_ms"])
+              for name in WALK_KERNELS for r in res.get(name, ())}
+    log(f"[launch-floor] {where}, ms per launch of each walk kernel beside "
+        f"an empty kernel on its grid (kernel, empty): {floors}")
     return res
 
 
@@ -1455,12 +1547,14 @@ def c_params(src):
 # the --ab cases: the DP kernels' rows at band w = 3, chain_dp's (S, NL,
 # rows) at P = 16 (chr21's main shape on adversarial inputs and
 # gpu-chain's two wide buckets; then one chr21 step's recorded inputs),
-# the fold's (reads, P_MAX); each with its iterations per timing
+# the fold's (reads, P_MAX), the walk kernels' WALK_SWEEP specs (then one
+# chr21 step's recorded inputs); each with its iterations per timing
 AB_ROWS = (1024, 4096, 8192, 512)
 AB_CHAIN = ((16, 6, 16384), (128, 15, 2048), (500, 15, 128))
 AB_FOLD = ((4096, 8),)
 AB_WALK = {"walk_fold": ((4096, 8, 6144, 0, True),),
-           "tiny_dp": ((512, 3, True), (4096, 3, False)),
+           "tiny_dp": tuple((B, 3, end, share) for B, end in (
+               (512, True), (4096, False)) for share in (0.0, 0.5, 1.0)),
            "walk_scan": ((8, 6144, 12),)}
 AB_ITERS = {"chain_dp": 20, "mr_pair_fold": 50}
 
@@ -1507,18 +1601,22 @@ def ab_cases(names, w=3, seed=19):
                                        NL, S, 16)
             yield chain_case(f"S={S} NL={NL} b={b}",
                              [torch.from_numpy(a).cuda() for a in arrs], kw)
-        rec = chr21_chain_inputs()
+        [rec] = chr21_step_inputs("chain_dp")
         yield chain_case(f"chr21 step, b={rec['args'][0].shape[0]}",
                          rec["args"], rec["kw"])
     for name in WALK_KERNELS:
         if name not in names:
             continue
         spec = _ext.KERNELS[name]
-        for k, case in enumerate(AB_WALK[name]):
-            args, kw = walk_case(name, case, torch.device("cuda"), seed + k)
+        cases = [(str(case), *walk_case(name, case, torch.device("cuda"),
+                                        seed + k))
+                 for k, case in enumerate(AB_WALK[name])]
+        cases += [(f"chr21 step, {rec['rows']} rows", rec["args"],
+                   rec["kw"]) for rec in chr21_step_inputs(name)]
+        for tag, args, kw in cases:
             kern, plain = tensor_kernel_calls(name, args, kw)
             got = launch_record(kern)
-            yield (name, str(case),
+            yield (name, tag,
                    dict(zip(spec.tensors, got["args"]),
                         **dict(zip(spec.statics, got["statics"]))),
                    spec.tensors[-1:], plain())
@@ -1550,28 +1648,50 @@ def launch_record(call):
     return got
 
 
-def chr21_chain_inputs():
-    """The inputs of chain_dp in one eager chr21 gpu-full step of 4,096
-    pairs (the main path's): {"args", "kw", "count"}."""
+_CHR21_STEP = {}
+
+
+def chr21_step_inputs(name):
+    """The inputs of the ``launch_tensors`` kernel ``name`` in one eager
+    chr21 gpu-full step of 4,096 pairs (the main path's), one record
+    {"args", "kw", "count", "rows"} per row count; the step runs once per
+    process."""
     import torch
     from circminer_tpu_torch.pipeline.device_pipeline import (
         DeviceMappingPipeline)
-    cfg, gi, db, reads, _ = chr21_setup()
-    pipe = DeviceMappingPipeline(db, gi, cfg, batch_size=4096,
-                                 chain_exec="device-full",
-                                 extend_exec="native",
-                                 device=torch.device("cuda"))
-    pipe.warmup()
-    pipe.step_graph = False
-    store = {}
-    undo = recording_tensor_kernels(store)
-    try:
-        pipe.map_stream(iter(make_pairs(reads[:4096], cfg)))
-        torch.cuda.synchronize()
-    finally:
-        undo()
-    [rec] = [v for (name, _), v in store.items() if name == "chain_dp"]
-    return rec
+    if not _CHR21_STEP:
+        cfg, gi, db, reads, _ = chr21_setup()
+        pipe = DeviceMappingPipeline(db, gi, cfg, batch_size=4096,
+                                     chain_exec="device-full",
+                                     extend_exec="native",
+                                     device=torch.device("cuda"))
+        pipe.warmup()
+        pipe.step_graph = False
+        undo = recording_tensor_kernels(_CHR21_STEP)
+        try:
+            pipe.map_stream(iter(make_pairs(reads[:4096], cfg)))
+            torch.cuda.synchronize()
+        finally:
+            undo()
+    return [dict(rec, rows=rows)
+            for (n, rows), rec in sorted(_CHR21_STEP.items()) if n == name]
+
+
+def selecting_tiny_dp(fn, args, tiny, banded, out):
+    """One call of a ``tiny_dp`` source from before the kernel took the
+    pool's fallback mask: its kernel answers every row into ``out``, then
+    the pool's torch.where keeps the fallback rows (END: one on each of the
+    unbound (ed, indel) columns).  Returns the call, which returns the
+    selected columns."""
+    import torch
+
+    def call():
+        fn(*args)
+        if out.dim() == 1:
+            return (torch.where(tiny, out, banded),)
+        return tuple(torch.where(tiny, a, b)
+                     for a, b in zip(out.unbind(1), banded.unbind(1)))
+    return call
 
 
 def phase_ab(sources):
@@ -1580,7 +1700,9 @@ def phase_ab(sources):
     the port's nvcc flags.  Per case of ``ab_cases`` the sources that
     define its kernel are held bit-equal to the plain version and timed
     by the profiler's device events in turns (A B ... then ... B A), each
-    called with its own parameters, laid out by name.  Returns {source:
+    called with its own parameters, laid out by name (a ``tiny_dp``
+    source without the fallback mask is timed with the pool's select that
+    it needs, ``selecting_tiny_dp``).  Returns {source:
     {kernel: {case: mean ms of the two turns}}}."""
     import ctypes
     import torch
@@ -1619,16 +1741,25 @@ def phase_ab(sources):
                 args.append(ctypes.c_void_p(stream))
                 fn = getattr(libs[src], sym)
                 check(fn(*args) == 0, f"{src} {name} failed to launch")
+                select = name == "tiny_dp" and "tiny" not in params[src][sym]
+                call = (selecting_tiny_dp(fn, args, vals["tiny"],
+                                          vals["banded"], outs["out"])
+                        if select else lambda: fn(*args))
+                if select:
+                    cols = call()
+                    outs["out"] = torch.stack(cols, 1) if len(cols) > 1 \
+                        else cols[0]
                 torch.cuda.synchronize()
                 check(all(torch.equal(outs[o], x)
                           for o, x in zip(out_names, want)),
                       f"{src} {name} differs from its plain version ({tag})")
-                ms = device_ms(lambda: fn(*args), f"{name}_kernel",
-                               AB_ITERS.get(name, 200))
+                ms = device_ms(call, f"{name}_kernel",
+                               AB_ITERS.get(name, 200), rest=select)
                 times[src].setdefault(name, {}).setdefault(
                     tag, []).append(ms)
                 log(f"[ab] {os.path.basename(src)} {name} {tag}: "
-                    f"{ms:.5f} ms")
+                    f"{ms:.5f} ms" + (" with the pool's torch.where"
+                                      if select else ""))
     return {src: {name: {tag: sum(v) / len(v) for tag, v in per.items()}
                   for name, per in kern.items()}
             for src, kern in times.items()}
@@ -1638,18 +1769,25 @@ def phase_replay(batch=4096, turns=3, iters=10):
     """``python3 chip_smoke.py --replay [TREE]``: the gpu-full map of the
     16,384 chr21 pairs (its step captured at warm-up, one replay per
     batch) and then the device ms per replay of its graph (CUDA events,
-    ``turns`` times ``iters`` replays of the last batch): the step's A/B
-    across commits, one process per tree, in turns."""
+    ``turns`` times ``iters`` replays of the last batch), and the aten ops
+    of one eager step on the first batch: the step's A/B across commits,
+    one process per tree, in turns."""
     import torch
     cfg, gi, db, reads, _ = chr21_setup()
-    r = run_slice(cfg, gi, db, reads, "device-full", "native",
-                  torch.device("cuda"), batch)
-    graph = r["pipe"].full_graph
+    device = torch.device("cuda")
+    r = run_slice(cfg, gi, db, reads, "device-full", "native", device,
+                  batch)
+    pipe = r["pipe"]
+    graph = pipe.full_graph
     check(graph.captures == 1, f"{graph.captures} captures")
+    replay_ms = [cuda_ms(graph.replay, iters) for _ in range(turns)]
+    args = full_step_args(pipe, make_pairs(reads[:batch], cfg), device,
+                          batch)
+    _, n_ops = count_aten_ops(lambda: run_full_step(
+        pipe, pipe.states[0], args, pipe._full_statics()))
     return dict(map_pairs_per_s=r["n"] / r["map_s"], map_s=r["map_s"],
-                pool_bytes=graph.pool_bytes,
-                replay_ms=[cuda_ms(graph.replay, iters)
-                           for _ in range(turns)])
+                pool_bytes=graph.pool_bytes, replay_ms=replay_ms,
+                eager_aten_ops=n_ops)
 
 
 # --------------------------------------------------------------------------

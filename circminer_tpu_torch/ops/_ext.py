@@ -69,7 +69,7 @@ KERNELS = {
          "lane_defer", "ed_th", "bound", "out")),
     "tiny_dp": Kernel(
         "cm_tiny_dp", ("B", "Ls", "Lt", "NM", "MM", "w", "max_ed", "end"),
-        ("s", "t", "n", "m", "out")),
+        ("s", "t", "n", "m", "tiny", "banded", "out")),
     "walk_scan": Kernel(
         "cm_walk_scan", ("STW", "WPP", "NIV", "NS", "G", "KSCAN"),
         ("ws", "slot", "lane", "iv_spos", "iv_epos", "t2s_state", "ws_out")),

@@ -147,8 +147,17 @@ def edit_end_batch(s, t, n, m, *, w: int, max_ed: int, I: int = 128):
     """(ed, indel) int32 [B]; CUDA tensors run the ``edit_end`` kernel."""
     if not s.is_cuda:
         return edit_end_scan(s, t, n, m, w=w, max_ed=max_ed, I=I)
-    out = _ext.launch("edit_end", s, t, n, m, None, 2, I, (w, max_ed))
+    out = edit_end_rows(s, t, n, m, w=w, max_ed=max_ed, I=I)
     return out[:, 0], out[:, 1]
+
+
+def edit_end_rows(s, t, n, m, *, w: int, max_ed: int, I: int = 128):
+    """``edit_end_batch``'s (ed, indel) as the rows of one int32 [B, 2]
+    tensor, the kernel's own output on a CUDA tensor."""
+    if not s.is_cuda:
+        return torch.stack(edit_end_scan(s, t, n, m, w=w, max_ed=max_ed,
+                                         I=I), dim=1)
+    return _ext.launch("edit_end", s, t, n, m, None, 2, I, (w, max_ed))
 
 
 def one_side_batch(s, t, n, m, wv, *, w: int, I: int = 128):

@@ -181,8 +181,7 @@ def _one_side_pool(s, t, n, m, wv, I, *, w):
     wv = wv.to(_i32).contiguous()
     s, t = s.contiguous(), t.contiguous()
     banded = one_side_batch(s, t, n, m, wv, w=w, I=I)
-    tiny = tiny_dp(s, t, n, m, NM=4, MM=8, end=False)
-    return torch.where(n <= wv, tiny, banded)
+    return tiny_dp(s, t, n, m, n <= wv, banded, NM=4, MM=8, end=False)
 
 
 def _drop_wrap(score, on_s, on_t, m, *, mat, mis, w, max_ed, max_sc, left):

@@ -38,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from . import _ext
-from .align_device import edit_end_batch
+from .align_device import edit_end_rows
 from .pallas_align import POS, xdrop_batch
 
 _i32 = torch.int32
@@ -114,22 +114,25 @@ def _tiny_end(s, t, n, m, *, w, max_ed, NM, MM):
 
 
 # the widest tiny-DP row the kernel takes: MM + 1 words for each of 32
-# threads in 48 KB of shared memory (csrc/walk.cu::cm_tiny_dp); the pools
+# threads in 48 KB of shared memory (csrc/walk.cu::tiny_shape); the pools
 # pass MM <= I - 1 = 127
 TINY_MM_MAX = 48 * 1024 // (4 * 32) - 1
 
 
-def tiny_dp(s, t, n, m, *, NM: int, MM: int, w: int = 0, max_ed: int = 0,
-            end: bool):
-    """The full (unbanded) edit DP of the tiny fallback shapes over a pool:
-    s int8 [B, Ls >= NM], t int8 [B, Lt >= MM], n, m int32 [B], each
-    clamped to NM / MM.  end=True: ``_tiny_end``'s (ed, indel) as int32
-    [B, 2]; end=False: ``_tiny_global``'s dp[n][m] as int32 [B].  On a CPU
-    tensor its plain version (``_tiny_dp_plain``); on a CUDA tensor the
-    ``tiny_dp`` kernel (csrc/walk.cu), or a raise."""
+def tiny_dp(s, t, n, m, tiny, banded, *, NM: int, MM: int, w: int = 0,
+            max_ed: int = 0, end: bool):
+    """The full (unbanded) edit DP of the tiny fallback shapes on the rows
+    of a pool that fall back to it: s int8 [B, Ls >= NM], t int8 [B, Lt >=
+    MM], n, m int32 [B], each clamped to NM / MM; tiny bool [B], the
+    fallback rows; banded int32, the banded kernel's answers, [B, 2] (end)
+    or [B].  Returns a tensor like banded: on the tiny rows, end=True:
+    ``_tiny_end``'s (ed, indel); end=False: ``_tiny_global``'s dp[n][m];
+    banded's row on every other row.  On a CPU tensor its plain version
+    (``_tiny_dp_plain``); on a CUDA tensor the ``tiny_dp`` kernel
+    (csrc/walk.cu), or a raise."""
     kw = dict(NM=NM, MM=MM, w=w, max_ed=max_ed, end=end)
     if not s.is_cuda:
-        return _tiny_dp_plain(s, t, n, m, **kw)
+        return _tiny_dp_plain(s, t, n, m, tiny, banded, **kw)
     B = s.shape[0]
     if s.shape[1] < NM or t.shape[1] < MM:
         raise ValueError(f"tiny_dp reads NM = {NM} / MM = {MM} bases of "
@@ -137,50 +140,54 @@ def tiny_dp(s, t, n, m, *, NM: int, MM: int, w: int = 0, max_ed: int = 0,
     if MM > TINY_MM_MAX:
         raise ValueError(f"tiny_dp takes rows of at most {TINY_MM_MAX} "
                          f"columns, got MM = {MM}")
-    out = torch.empty((B, 2) if end else (B,), dtype=_i32, device=s.device)
+    out = torch.empty_like(banded)
     if B == 0:
         return out
-    _ext.launch_tensors("tiny_dp", tiny_dp_args(s, t, n, m, out, end=end),
+    _ext.launch_tensors("tiny_dp",
+                        tiny_dp_args(s, t, n, m, tiny, banded, out, end=end),
                         (B, s.shape[1], t.shape[1], NM, MM, w, max_ed,
                          int(end)))
     return out
 
 
-def tiny_dp_args(s, t, n, m, out, *, end: bool):
+def tiny_dp_args(s, t, n, m, tiny, banded, out, *, end: bool):
     """The (tensor, dtype, shape) arguments of the ``tiny_dp`` kernel, in
     its order."""
     B = s.shape[0]
+    res = (B, 2) if end else (B,)
     return [(s, torch.int8, (B, s.shape[1])), (t, torch.int8, (B, t.shape[1])),
-            (n, _i32, (B,)), (m, _i32, (B,)),
-            (out, _i32, (B, 2) if end else (B,))]
+            (n, _i32, (B,)), (m, _i32, (B,)), (tiny, torch.bool, (B,)),
+            (banded, _i32, res), (out, _i32, res)]
 
 
-def _tiny_dp_plain(s, t, n, m, *, NM, MM, w=0, max_ed=0, end):
+def _tiny_dp_plain(s, t, n, m, tiny, banded, *, NM, MM, w=0, max_ed=0, end):
     """The plain version of ``tiny_dp``: ``_tiny_end`` or ``_tiny_global``
-    on the first NM / MM columns and the clamped lengths."""
+    on the first NM / MM columns and the clamped lengths of every row, then
+    the pool's select of the tiny rows."""
     sn, tm = s[:, :NM], t[:, :MM]
     nc, mc = torch.clamp(n, max=NM), torch.clamp(m, max=MM)
     if not end:
         from .device_full import _tiny_global
-        return _tiny_global(sn, tm, nc, mc, NM, MM)
+        return torch.where(tiny, _tiny_global(sn, tm, nc, mc, NM, MM),
+                           banded)
     ed, indel = _tiny_end(sn, tm, nc, mc, w=w, max_ed=max_ed, NM=NM, MM=MM)
-    return torch.stack([ed, indel], dim=1)
+    return torch.where(tiny[:, None], torch.stack([ed, indel], dim=1),
+                       banded)
 
 
 def _end_dp_pool(s, t, n, m, *, w, max_ed, I):
     """Pooled local_alignment_right (the ``end_r/end_l`` request kind):
     the ``edit_end`` kernel for the banded regime, the tiny full DP
-    (``tiny_dp``) for the fallback shapes (n <= 2w or m <= w, which bounds
+    (``tiny_dp``) on the fallback shapes (n <= 2w or m <= w, which bounds
     both dims by 2w).  Returns (ed, indel); the request's score is -ed
     (align.py:188)."""
     n, m = n.to(_i32).contiguous(), m.to(_i32).contiguous()
     s, t = s.contiguous(), t.contiguous()
-    b_ed, b_in = edit_end_batch(s, t, n, m, w=w, max_ed=max_ed, I=I)
+    banded = edit_end_rows(s, t, n, m, w=w, max_ed=max_ed, I=I)
     TN = TM = max(8, 2 * w + 2)
-    t_ed, t_in = tiny_dp(s, t, n, m, NM=TN, MM=TM, w=w, max_ed=max_ed,
-                         end=True).unbind(1)
     tiny = (n <= 2 * w) | (m <= w)
-    return torch.where(tiny, t_ed, b_ed), torch.where(tiny, t_in, b_in)
+    return tiny_dp(s, t, n, m, tiny, banded, NM=TN, MM=TM, w=w,
+                   max_ed=max_ed, end=True).unbind(1)
 
 
 # --------------------------------------------------------------------------
@@ -585,6 +592,10 @@ def _walk_scan_plain(ws, slot, lane, iv_spos, iv_epos, t2s_state, *, KSCAN,
 # --------------------------------------------------------------------------
 
 KEYS = ("pos", "ed", "sclen", "indel", "qcov", "score")
+# the kernel's limits: a pool lane's transcripts on one thread each, each
+# thread holding its events (csrc/walk.cu FOLD_T, 2 * FOLD_EW); walk_waves
+# passes ST <= STW
+FOLD_ST_MAX, FOLD_EW_MAX = 8, 8
 # the rows of the fold's int32 [len(FOLD_OUT), N] output (the enum FoldOut
 # of csrc/walk.cu)
 FOLD_OUT = KEYS + ("consec", "defer")
@@ -618,21 +629,24 @@ def walk_fold_lanes(events, act, inv, n_act, p_live, p_pos, p_len,
     of the family the best fields, consec and defer (0 / 1) of its live
     lane, zeros elsewhere.  On a CPU tensor its plain version
     (``_walk_fold_plain``); on a CUDA tensor the ``walk_fold`` kernel
-    (csrc/walk.cu), or a raise."""
+    (csrc/walk.cu; ST <= FOLD_ST_MAX, EW <= FOLD_EW_MAX), or a raise."""
     kw = dict(fam=fam, left=left, max_ed=max_ed, max_sc=max_sc, band=band)
     if not events.is_cuda:
         return _walk_fold_plain(events, act, inv, n_act, p_live, p_pos,
                                 p_len, lane_defer, ed_th, bound, **kw)
     N = ed_th.shape[0]
     ST, WPP = act.shape
+    EW = events.shape[0] // max(ST, 1)
+    if ST > FOLD_ST_MAX or EW > FOLD_EW_MAX:
+        raise ValueError(f"walk_fold takes at most {FOLD_ST_MAX} transcripts "
+                         f"of {FOLD_EW_MAX} events a lane, got {ST} of {EW}")
     out = torch.zeros((len(FOLD_OUT), N), dtype=_i32, device=events.device)
     if WPP * N * ST == 0:
         return out
     _ext.launch_tensors(
         "walk_fold", walk_fold_args(events, act, inv, n_act, p_live, p_pos,
                                     p_len, lane_defer, ed_th, bound, out),
-        (WPP, N, fam, int(left), ST, events.shape[0] // ST, max_ed, max_sc,
-         band))
+        (WPP, N, fam, int(left), ST, EW, max_ed, max_sc, band))
     return out
 
 

@@ -241,7 +241,7 @@ def test_kernels_match_plain_on_card(cuda_device, w):
             want = tuple(x.cpu() for x in want) if isinstance(want, tuple) \
                 else want.cpu()
             _eq(got, want)
-    assert all(v == len(BATCHES) for v in _ext.LAUNCHES.values()), \
+    assert all(_ext.LAUNCHES[k] == len(BATCHES) for k in _ext.DP_KERNELS), \
         _ext.LAUNCHES
 
 

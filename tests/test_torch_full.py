@@ -145,15 +145,32 @@ def jax_blob(world):
 # the DP pool family
 # --------------------------------------------------------------------------
 
-def _pool_batch(seed, B=96):
-    """Banded-regime pairs with every third row cut to a tiny shape
-    (n, m in 0..2w+2), where the pools use their full tiny DPs."""
+# the share of a pool's rows that fall back to its full tiny DP
+SHARES = {"none": 0.0, "mixed": 0.5, "all": 1.0}
+
+
+def _pool_batch(seed, share, end, B=96):
+    """Banded-regime pairs of which a share is cut to a tiny shape (n, m
+    in 0..2w+2) where the pool falls back to its full tiny DP (END: n <= 2w
+    or m <= w; the one-sided pool: n <= wv) and the rest lengthened out of
+    it."""
     s, t, n, m, wv = _batch(seed, B)
     rng = np.random.default_rng(seed + 1)
-    for b in range(0, B, 3):
-        n[b], m[b] = rng.integers(0, 2 * W + 3, size=2)
-        s[b, n[b]:] = 0
-        t[b, m[b]:] = 0
+    fall = rng.random(B) < share
+    for b in range(B):
+        if fall[b]:
+            n[b] = rng.integers(0, 2 * W + 1) if end \
+                else rng.integers(0, wv[b] + 1)
+            m[b] = rng.integers(0, 2 * W + 3)
+            s[b, n[b]:] = 0
+            t[b, m[b]:] = 0
+        elif end:
+            n[b], m[b] = max(n[b], 2 * W + 1), max(m[b], W + 1)
+        else:
+            n[b] = max(n[b], 1)
+            wv[b] = min(wv[b], n[b] - 1)
+    tiny = (n <= 2 * W) | (m <= W) if end else n <= wv
+    assert np.array_equal(tiny, fall)
     return s, t, n, m, wv
 
 
@@ -172,8 +189,10 @@ def _same(got, want, what=""):
         np.testing.assert_array_equal(g, w, err_msg=f"{what}[{i}]")
 
 
-def test_tiny_global_and_one_side_pool_match_jax():
-    (js, jt, jn, jm, jw), (ts, tt, tn, tm, tw) = _jt(*_pool_batch(1))
+@pytest.mark.parametrize("share", SHARES)
+def test_tiny_global_and_one_side_pool_match_jax(share):
+    (js, jt, jn, jm, jw), (ts, tt, tn, tm, tw) = _jt(
+        *_pool_batch(1, SHARES[share], end=False))
     _same(tfull._tiny_global(ts[:, :4], tt[:, :8], torch.clamp(tn, max=4),
                              torch.clamp(tm, max=8), 4, 8),
           jfull._tiny_global(js[:, :4], jt[:, :8], jnp.minimum(jn, 4),
@@ -182,8 +201,10 @@ def test_tiny_global_and_one_side_pool_match_jax():
           jfull._one_side_pool(js, jt, jn, jm, jw, 128), "one_side_pool")
 
 
-def test_tiny_end_and_end_dp_pool_match_jax():
-    (js, jt, jn, jm, _), (ts, tt, tn, tm, _) = _jt(*_pool_batch(2))
+@pytest.mark.parametrize("share", SHARES)
+def test_tiny_end_and_end_dp_pool_match_jax(share):
+    (js, jt, jn, jm, _), (ts, tt, tn, tm, _) = _jt(
+        *_pool_batch(2, SHARES[share], end=True))
     TN = 2 * W + 2
     _same(twalk._tiny_end(ts[:, :TN], tt[:, :TN], torch.clamp(tn, max=TN),
                           torch.clamp(tm, max=TN), w=W, max_ed=MAX_ED,

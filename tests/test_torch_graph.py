@@ -172,18 +172,23 @@ def _stubs(calls):
         _kernel_args_ok(twalk.walk_scan_args(ws, *args, out))
         return out
 
-    def tiny_dp(s, t, n, m, *, end, **kw):
+    def tiny_dp(s, t, n, m, tiny, banded, *, end, **kw):
         calls["tiny_dp"] += 1
         out = torch.zeros((s.shape[0], 2) if end else (s.shape[0],),
                           dtype=torch.int32)
-        _kernel_args_ok(twalk.tiny_dp_args(s, t, n, m, out, end=end))
+        _kernel_args_ok(twalk.tiny_dp_args(s, t, n, m, tiny, banded, out,
+                                           end=end))
         return out
+
+    def edit_end_rows(s, *a, **kw):
+        calls["edit_end"] += 1
+        return torch.zeros((s.shape[0], 2), dtype=torch.int32)
 
     return {
         (tfull, "one_side_batch"): lambda s, *a, **kw: out("one_side", s, 1),
         (tfull, "xdrop_batch"): lambda s, *a, **kw: out("xdrop", s, 3),
         (twalk, "xdrop_batch"): lambda s, *a, **kw: out("xdrop", s, 3),
-        (twalk, "edit_end_batch"): lambda s, *a, **kw: out("edit_end", s, 2),
+        (twalk, "edit_end_rows"): edit_end_rows,
         (tchain, "chain_dp"): chain_dp,
         (tfull, "mr_pair_fold"): mr_pair_fold,
         (twalk, "walk_fold_lanes"): walk_fold_lanes,
@@ -220,9 +225,9 @@ def test_fused_step_never_waits_for_the_device(world, monkeypatch):
     indexing, every lifted scalar from a named site, and the kernels
     launched 5 (xdrop), 4 (edit_end), 1 (one_side), 1 (chain_dp), 2
     (mr_pair_fold), 4 (walk_fold), 4 (walk_scan) and 5 (tiny_dp) times.
-    The step dispatches 8,062 aten ops with the kernels stubbed (39,031
-    before the walk's kernels); the floor shows that the audit saw all
-    of it."""
+    The step dispatches 8,053 aten ops with the kernels stubbed: 8,062
+    before tiny_dp took its pools' select of the fallback rows, 39,031
+    before the walk's kernels."""
     blob, audit, calls = _audited_step(world, monkeypatch)
     assert tuple(blob.shape) == (BATCH, tfull.MRF + 1)
     assert not audit.syncing, Counter(audit.syncing)
@@ -233,7 +238,7 @@ def test_fused_step_never_waits_for_the_device(world, monkeypatch):
     print(f"device_full_step at B = {BATCH}, kernels stubbed: {total} aten "
           f"ops per step; top {audit.ops.most_common(5)}; by innermost "
           f"span {audit.by_span.most_common()}")
-    assert total > 7_000
+    assert total == 8_053
 
 
 def test_walk_scan_and_fold_are_one_kernel_each(world, monkeypatch):

@@ -10,11 +10,15 @@
   ``left`` values.
 - The plain tiny DPs (``tiny_dp`` on CPU tensors) against the reference's
   ``_tiny_end`` and ``_tiny_global`` at w in {0, 1, 3, 5}, with candidate
-  ties in ed and in |indel|.
-- A scalar transcription of each kernel's per-thread loop (early exits
+  ties in ed and in |indel|, on pools where no row, half the rows or every
+  row falls back to them; the other rows pass the banded answer through.
+- A scalar transcription of each kernel's per-thread work (early exits
   included) against its plain version, with counts that show every branch
-  taken: for the scan all six status transitions, empty flushes on both
-  sides, a reference out of bounds and a negative rr2.
+  taken: the fold's batched loads a transcript, the tiny DP's anti-diagonal
+  steps on a row's lanes (and the row kept in shared memory past
+  TINY_REG columns), the scan's steps with all six status transitions,
+  empty flushes on both sides, a reference out of bounds and a negative
+  rr2.
 - Each ``*_args`` list against its ``_ext.KERNELS`` spec, and the C enums
   and constants against the Python orders.
 - ``cuda``-marked (skipped without a card): each kernel against its plain
@@ -32,8 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (I32MAX, tiny_dp_inputs, walk_fold_inputs,
-                        walk_scan_inputs)
+from chip_smoke import (I32MAX, WALK_EMPTY, tiny_dp_inputs,
+                        walk_fold_inputs, walk_scan_inputs)
 from circminer_tpu.ops import device_full as jfull
 from circminer_tpu.ops import device_walk as jwalk
 from circminer_tpu_torch.ops import _ext
@@ -56,11 +60,16 @@ def _torch(arrays):
     return [torch.from_numpy(np.require(a, requirements="C")) for a in arrays]
 
 
-def fold_case(seed, B=6, P=4, WPP=40, fam=0, left=True):
+# how many rows of a tiny-DP pool fall back to the tiny DP
+SHARES = {"none": 0.0, "mixed": 0.5, "all": 1.0}
+
+
+def fold_case(seed, B=6, P=4, WPP=40, fam=0, left=True, EW=4):
     """walk_fold_inputs at N = B * 2 * P pair slots, and the [4N] pool
     overflow mask of a walk dict."""
     rng = np.random.default_rng(seed)
-    arrays, kw = walk_fold_inputs(rng, WPP, B * 2 * P, fam=fam, left=left)
+    arrays, kw = walk_fold_inputs(rng, WPP, B * 2 * P, fam=fam, left=left,
+                                  EW=EW)
     over = rng.random(4 * B * 2 * P) < 0.1
     return arrays, kw, over, (B, 2, P)
 
@@ -109,13 +118,16 @@ def test_plain_walk_fold_matches_jax(fam, left):
     assert (got[0]["score"] != 0).any() and got[1].any()
 
 
+@pytest.mark.parametrize("share", SHARES)
 @pytest.mark.parametrize("w", [0, 1, 3, 5])
-def test_plain_tiny_dp_matches_jax(w):
-    """END: (ed, indel) of _tiny_end; GLOBAL: dp[n][m] of _tiny_global."""
+def test_plain_tiny_dp_matches_jax(w, share):
+    """END: (ed, indel) of _tiny_end; GLOBAL: dp[n][m] of _tiny_global; on
+    the rows that fall back to them.  Every other row is its banded answer,
+    bit for bit."""
     for end in (True, False):
         arrays, kw = tiny_dp_inputs(np.random.default_rng(40 + w), 300, w,
-                                    end=end)
-        s, t, n, m = arrays
+                                    end=end, share=SHARES[share])
+        s, t, n, m, tiny, banded = arrays
         NM, MM = kw["NM"], kw["MM"]
         got = twalk.tiny_dp(*_torch(arrays), **kw)
         js, jt = jnp.asarray(s[:, :NM]), jnp.asarray(t[:, :MM])
@@ -127,90 +139,165 @@ def test_plain_tiny_dp_matches_jax(w):
             want = np.stack([np.asarray(ed), np.asarray(indel)], axis=1)
         else:
             want = np.asarray(jfull._tiny_global(js, jt, jn, jm, NM, MM))
-        assert got.dtype == torch.int32
-        assert np.array_equal(got.numpy(), want), (w, end)
+        assert got.dtype == torch.int32 and got.shape == banded.shape
+        got = got.numpy()
+        assert tiny.sum() == {"none": 0, "all": 300}.get(share, tiny.sum())
+        assert 0 < tiny.sum() < 300 or share != "mixed"
+        assert np.array_equal(got[tiny], want[tiny]), (w, end)
+        assert np.array_equal(got[~tiny], banded[~tiny]), (w, end)
 
 
 # --------------------------------------------------------------------------
 # scalar transcriptions of the kernels' per-thread loops
 # --------------------------------------------------------------------------
 
+def _c_consts():
+    """The integer constants of csrc/walk.cu."""
+    with open(f"{_ext._CSRC}/walk.cu") as f:
+        return {k: int(v) for k, v in
+                re.findall(r"constexpr int (\w+) = (-?\d+);", f.read())}
+
+
+C = _c_consts()
+TERMINAL = (twalk.EVK_TRAIL, twalk.EVK_END, twalk.EVK_ENDND)
+
+
 def fold_scalar(events, act, inv, n_act, p_live, p_pos, p_len, lane_defer,
                 ed_th, bound, *, fam, left, max_ed, max_sc, band, cov):
-    """walk_fold_kernel's thread per pool lane, in its order: exit past
-    n_act or off the family, then per transcript the events until the lane
-    dies."""
+    """walk_fold_kernel's warps, in its order: four pool lanes a warp, a
+    lane's transcripts on FOLD_T threads.  Round 1: each thread's lane
+    scalars, act and event kinds; a warp without a live lane of the family
+    leaves.  Round 2: the extend's ed_th and bound, and each thread's
+    event fields up to its first terminal kind; then each thread's curr
+    chain keeps the candidate of every event that updates best.  Last the
+    turns: transcript s's candidates fold into its lane's best, in event
+    order, skipped where no thread s of the warp has one.  The chains read
+    only the fields round 2 loaded."""
     N = ed_th.shape[0]
     ST, WPP = act.shape
     EW = events.shape[0] // ST
+    T = C["FOLD_T"]
+    lanes_a_warp = 32 // T
     out = np.zeros((len(twalk.FOLD_OUT), N), np.int64)
-    for w in range(WPP):
-        if w >= int(n_act):
-            cov["dead_row"] += 1
+
+    def ev(t, e, f, w):
+        return int(events[t * EW + e, twalk.EV_KEYS.index(f), w])
+
+    for w0 in range(0, WPP, lanes_a_warp):
+        lanes = range(w0, min(w0 + lanes_a_warp, WPP))
+        mine = {}
+        for w in lanes:
+            if w >= int(n_act):
+                cov["dead_row"] += 1
+            elif int(inv[w]) // N != fam or not p_live[w]:
+                cov["other_family"] += 1
+            else:
+                mine[w] = int(inv[w]) - fam * N
+        if not mine:
+            cov["warp_idle"] += 1
             continue
-        iv = int(inv[w])
-        if iv // N != fam or not p_live[w]:
-            cov["other_family"] += 1
-            continue
-        slot = iv - fam * N
-        eth, bnd = int(ed_th[slot]), int(bound[slot])
-        pos, qlen = int(p_pos[w]), int(p_len[w])
-        cov["eth_negative"] += eth < 0
-        cov["bound_i32max"] += bnd == I32MAX
-        best = [pos, w32(eth + 1), w32(qlen + 1), w32(band + 1), 0, 0]
-        consec = False
-        for t in range(ST):
-            curr = [bnd, 0, 0, 0, 0, NEG_SCORE]
-            alive = bool(act[t, w])
-            for e in range(EW):
-                if not alive:
-                    break
-                kind, xp, aux, ed, indel, sclen, scr = (
-                    int(v) for v in events[t * EW + e, :, w])
-                cov[f"kind{kind}"] += 1
-                if kind in (twalk.EVK_MID, twalk.EVK_TRAIL):
-                    edge = w32(bnd + aux) if left else w32(bnd - aux)
-                    cov["xp_at_bnd_aux"] += xp == edge
-                    bad = xp < w32(bnd + aux) if left \
-                        else w32(xp + aux) > bnd
-                    if bad or w32(curr[1] + ed) > eth:
-                        cov["mid_bound_bad" if bad else "mid_ed_over"] += 1
-                        alive = False
-                    else:
-                        curr = [w32(xp - aux) if left else w32(xp + aux),
-                                w32(curr[1] + ed), 0, w32(curr[3] - indel),
-                                w32(curr[4] + aux - indel), scr]
-                        best = _dir_scalar(best, curr, max_ed, max_sc, left,
-                                           cov)
-                    if kind == twalk.EVK_TRAIL:
-                        alive = False
-                elif kind in (twalk.EVK_END, twalk.EVK_ENDND):
-                    need = w32(qlen - aux)
-                    edge = w32(bnd + need) if left else w32(bnd - need)
-                    cov["xp_at_bnd_need"] += xp == edge
-                    bad = xp < w32(bnd + need) if left \
-                        else w32(xp + need) > bnd
-                    if bad:
-                        cov["end_bound_bad"] += 1
-                    else:
-                        if xp == pos:
-                            cov["consec"] += 1
-                            consec = True
-                        if (kind == twalk.EVK_END
-                                and w32(curr[1] + ed) <= eth
-                                and sclen <= max_sc
-                                and w32(need - sclen) >= sclen):
-                            curr = [w32(xp - need + indel) if left
-                                    else w32(xp + need - indel),
-                                    w32(curr[1] + ed), sclen,
-                                    w32(curr[3] + indel), w32(curr[4] + need),
-                                    scr]
-                            best = _score_scalar(best, curr, left, cov)
-                        else:
-                            cov["end_no_dp"] += 1
-                    alive = False
-        out[:, slot] = best + [consec, bool(lane_defer[w])]
+        chains = {}
+        for w, slot in mine.items():
+            eth, bnd = int(ed_th[slot]), int(bound[slot])
+            pos, qlen = int(p_pos[w]), int(p_len[w])
+            cov["eth_negative"] += eth < 0
+            cov["bound_i32max"] += bnd == I32MAX
+            for t in range(ST):
+                kinds = [ev(t, q, "kind", w) for q in range(EW)]
+                ne = next((q + 1 for q in range(EW) if kinds[q] in TERMINAL),
+                          EW) if act[t, w] else 0
+                cov["cut_at_terminal" if 0 < ne < EW else
+                    "no_terminal" if ne else "inactive"] += 1
+                loaded = []
+                for q in range(ne):
+                    keys = ("xpos", "aux") if kinds[q] != twalk.EVK_NONE \
+                        else ()
+                    if kinds[q] in (twalk.EVK_MID, twalk.EVK_TRAIL,
+                                    twalk.EVK_END):
+                        keys += ("ed", "indel", "score")
+                    if kinds[q] == twalk.EVK_END:
+                        keys += ("sclen",)
+                    loaded.append({f: ev(t, q, f, w) for f in keys})
+                chains[w, t] = _chain_scalar(kinds, loaded, ne, eth, bnd, pos,
+                                             qlen, left, max_sc, cov)
+        for w, slot in mine.items():
+            eth, qlen = int(ed_th[slot]), int(p_len[w])
+            out[:, slot] = [int(p_pos[w]), w32(eth + 1), w32(qlen + 1),
+                            w32(band + 1), 0, 0, 0, bool(lane_defer[w])]
+        for s in range(ST):
+            if not any(chains[w, s][0] for w in mine):
+                cov["turn_skipped"] += 1
+                continue
+            cov["turn"] += 1
+            for w, slot in mine.items():
+                best = list(out[:6, slot])
+                for rule, cand in chains[w, s][0]:
+                    best = (_dir_scalar(best, cand, max_ed, max_sc, left, cov)
+                            if rule == "dir" else
+                            _score_scalar(best, cand, left, cov))
+                out[:6, slot] = best
+        for w, slot in mine.items():
+            consec = [t for t in range(ST) if chains[w, t][1]]
+            cov["consec_past_thread0"] += bool(consec) and consec[0] > 0
+            out[6, slot] = bool(consec)
     return out
+
+
+def _chain_scalar(kinds, loaded, ne, eth, bnd, pos, qlen, left, max_sc,
+                  cov):
+    """One fold thread's curr chain over its transcript's first ne events:
+    ([(rule, candidate)] in event order, consec)."""
+    curr = [bnd, 0, 0, 0, 0, NEG_SCORE]
+    cands, consec, alive = [], False, True
+    for q in range(ne):
+        if not alive:
+            cov["dead_before_terminal"] += 1
+            break
+        kind, ev = kinds[q], loaded[q]
+        cov[f"kind{kind}"] += 1
+        if kind in (twalk.EVK_MID, twalk.EVK_TRAIL):
+            xp, aux, ed = ev["xpos"], ev["aux"], ev["ed"]
+            edge = w32(bnd + aux) if left else w32(bnd - aux)
+            cov["xp_at_bnd_aux"] += xp == edge
+            bad = xp < w32(bnd + aux) if left else w32(xp + aux) > bnd
+            if bad or w32(curr[1] + ed) > eth:
+                cov["mid_bound_bad" if bad else "mid_ed_over"] += 1
+                alive = False
+            else:
+                indel = ev["indel"]
+                curr = [w32(xp - aux) if left else w32(xp + aux),
+                        w32(curr[1] + ed), 0, w32(curr[3] - indel),
+                        w32(curr[4] + aux - indel), ev["score"]]
+                cands.append(("dir", curr))
+            if kind == twalk.EVK_TRAIL:
+                alive = False
+        elif kind in (twalk.EVK_END, twalk.EVK_ENDND):
+            xp = ev["xpos"]
+            need = w32(qlen - ev["aux"])
+            edge = w32(bnd + need) if left else w32(bnd - need)
+            cov["xp_at_bnd_need"] += xp == edge
+            bad = xp < w32(bnd + need) if left else w32(xp + need) > bnd
+            if bad:
+                cov["end_bound_bad"] += 1
+            else:
+                if xp == pos:
+                    cov["consec"] += 1
+                    consec = True
+                if kind == twalk.EVK_END \
+                        and w32(curr[1] + ev["ed"]) <= eth \
+                        and ev["sclen"] <= max_sc \
+                        and w32(need - ev["sclen"]) >= ev["sclen"]:
+                    sclen, indel = ev["sclen"], ev["indel"]
+                    curr = [w32(xp - need + indel) if left
+                            else w32(xp + need - indel),
+                            w32(curr[1] + ev["ed"]), sclen,
+                            w32(curr[3] + indel), w32(curr[4] + need),
+                            ev["score"]]
+                    cands.append(("score", curr))
+                else:
+                    cov["end_no_dp"] += 1
+            alive = False
+    return cands, consec
 
 
 def _dir_scalar(best, c, max_ed, max_sc, left, cov):
@@ -243,10 +330,12 @@ def _score_scalar(best, c, left, cov):
 
 @pytest.mark.parametrize("fam,left", [(0, True), (3, False)])
 def test_walk_fold_loop_order_matches_plain(fam, left):
+    """Three pools at the main path's EW = 4 and one at EW = 7 (the
+    kernel's threads hold up to 2 * FOLD_EW events)."""
     cov = Counter()
-    for seed in range(3):
+    for seed, EW in enumerate((4, 4, 4, 7)):
         arrays, kw, _, _ = fold_case(100 + seed, B=10, P=6, WPP=150, fam=fam,
-                                     left=left)
+                                     left=left, EW=EW)
         got = fold_scalar(*arrays, **kw, cov=cov)
         want = twalk.walk_fold_lanes(*_torch(arrays), **kw)
         assert np.array_equal(got, want.numpy())
@@ -255,76 +344,152 @@ def test_walk_fold_loop_order_matches_plain(fam, left):
             "mid_ed_over", "end_bound_bad", "consec", "end_no_dp",
             "dir_gt_take", "dir_gt_keep", "dir_lt_take", "dir_lt_keep",
             "dir_eq_take", "dir_eq_keep", "dir_pos_tie", "score_take",
-            "score_keep", "score_tie_pos_take", "score_tie_pos_keep"}
+            "score_keep", "score_tie_pos_take", "score_tie_pos_keep",
+            "warp_idle", "cut_at_terminal", "no_terminal", "inactive",
+            "dead_before_terminal", "turn", "turn_skipped",
+            "consec_past_thread0"}
     need |= {f"kind{k}" for k in range(5)}
     assert need <= {k for k, v in cov.items() if v}, need - set(cov)
 
 
-def tiny_scalar(s, t, n, m, *, NM, MM, w, max_ed, end, cov):
-    """tiny_dp_kernel's thread per row: the row of MM + 1 cells, rows up to
-    min(n, NM), the candidate scan after each row when end."""
+class _Cand:
+    """The Cand struct of tiny_dp: AlignCandid.update with the strict key
+    order, counting its branches."""
+
+    def __init__(self, w, max_ed, cov):
+        self.bk, self.be, self.bi = 0, w32(max_ed + 1), w32(w + 1)
+        self.w, self.max_ed, self.cov = w, max_ed, cov
+
+    def update(self, i, dmv, n, m):
+        w, max_ed, cov = self.w, self.max_ed, self.cov
+        indel = w32(m - i)
+        ai = abs32(indel)
+        if i <= n and ai <= w and dmv <= max_ed:
+            key = w32(w32((max_ed - dmv) * (w + 2))
+                      + w32(w + 1 - min(ai, w + 1)))
+            if key > self.bk:
+                if self.bk:
+                    cov["cand_better"] += 1
+                self.bk, self.be, self.bi = key, dmv, indel
+                return
+            cov["cand_ed_tie" if dmv == self.be else "cand_worse"] += 1
+            if key == self.bk:
+                cov["cand_key_tie"] += 1
+            if dmv == self.be and ai == abs32(self.bi) and indel != self.bi:
+                cov["cand_indel_sign_tie"] += 1
+
+
+def _col0(i, m):
+    return i if i >= 1 else (0 if m >= 0 else POS)
+
+
+def _tiny_lanes(s, t, n, m, *, MM, w, max_ed, end, cov):
+    """tiny_dp_kernel's TINY_REG lanes of one row: the mismatch masks down
+    each column, then the anti-diagonal steps (lane c at step k on row
+    i = k - c + 1, left from lane c - 1's last cell, diagonal the left of
+    the step before), column mc's lane scanning candidates."""
+    R = C["TINY_REG"]
+    mc = min(max(m, 0), MM)
+    mis = [0] * R
+    for c in range(mc):
+        tj = int(t[c])
+        for i in range(min(n, R)):
+            si = int(s[i])
+            mis[c] |= int(si != tj or si >= 4 or tj >= 4) << i
+    steps = n + mc - 1 if n >= 1 and mc >= 1 else 0
+    own = mc - 1 if mc > 0 else 0
+    cand = _Cand(w, max_ed, cov)
+    if end and mc > 0:
+        cand.update(0, mc, n, m)
+    cur = [c + 1 for c in range(R)]
+    diag = [0] * R
+    for k in range(steps):
+        lefts = [k + 1] + cur[:-1]          # the shuffle: all lanes at once
+        for c in range(R):
+            i = k - c + 1
+            if c < mc and 1 <= i <= n:
+                mi = (mis[c] >> (i - 1)) & 1
+                cur[c] = min(diag[c] + mi, cur[c] + 1, lefts[c] + 1)
+                cov["cell"] += 1
+                if end and c == own:
+                    cand.update(i, cur[c], n, m)
+            diag[c] = lefts[c]
+    if mc == 0:
+        cov["column0"] += 1
+        if end:
+            for i in range(max(n, 0) + 1):
+                cand.update(i, _col0(i, m), n, m)
+        else:
+            cur[own] = _col0(max(n, 0), m)
+    return (cand.be, cand.bi) if end else cur[own]
+
+
+def _tiny_row(s, t, n, m, *, MM, w, max_ed, end, cov):
+    """tiny_dp_kernel_smem's thread of one row: the row of MM + 1 cells,
+    rows up to n, the candidate scan after each row when end."""
+    row = [j if j <= m else POS for j in range(MM + 1)]
+    mc = min(max(m, 0), MM)
+    cand = _Cand(w, max_ed, cov)
+    if end:
+        cand.update(0, row[mc], n, m)
+    for i in range(1, n + 1):
+        si = int(s[i - 1])
+        diag, left = row[0], i
+        row[0] = i
+        for j in range(1, MM + 1):
+            up = row[j]
+            if j > m:
+                v = POS
+            else:
+                tj = int(t[j - 1])
+                mis = int(si != tj or si >= 4 or tj >= 4)
+                v = min(diag + mis, up + 1, left + 1)
+                cov["cell"] += 1
+            row[j] = left = v
+            diag = up
+        if end:
+            cand.update(i, row[mc], n, m)
+    return (cand.be, cand.bi) if end else row[mc]
+
+
+def tiny_scalar(s, t, n, m, tiny, banded, *, NM, MM, w, max_ed, end, cov):
+    """tiny_dp's work per row: the banded answer on a row that does not
+    fall back; else the lanes' wavefront at NM, MM <= TINY_REG, a thread's
+    row in shared memory past it."""
     B = s.shape[0]
-    out = np.zeros((B, 2) if end else (B,), np.int64)
+    out = banded.astype(np.int64).copy()
+    lanes = NM <= C["TINY_REG"] and MM <= C["TINY_REG"]
     for b in range(B):
+        if not tiny[b]:
+            cov["pass_through"] += 1
+            continue
         nb, mb = min(int(n[b]), NM), min(int(m[b]), MM)
         cov["n_clamped"] += int(n[b]) > NM
         cov["m_clamped"] += int(m[b]) > MM
-        row = [j if j <= mb else POS for j in range(MM + 1)]
-        mc = min(max(mb, 0), MM)
-        bk, be, bi = 0, w32(max_ed + 1), w32(w + 1)
-
-        def upd(i, bk, be, bi):
-            dmv, indel = row[mc], w32(mb - i)
-            ai = abs32(indel)
-            if i <= nb and ai <= w and dmv <= max_ed:
-                key = w32(w32((max_ed - dmv) * (w + 2))
-                          + w32(w + 1 - min(ai, w + 1)))
-                if key > bk:
-                    if bk:
-                        cov["cand_better"] += 1
-                    return key, dmv, indel
-                cov["cand_ed_tie" if dmv == be else "cand_worse"] += 1
-                if key == bk:
-                    cov["cand_key_tie"] += 1
-                if dmv == be and ai == abs32(bi) and indel != bi:
-                    cov["cand_indel_sign_tie"] += 1
-            return bk, be, bi
-        if end:
-            bk, be, bi = upd(0, bk, be, bi)
-        for i in range(1, min(nb, NM) + 1):
-            si = int(s[b, i - 1])
-            diag, left = row[0], i
-            row[0] = i
-            for j in range(1, MM + 1):
-                up = row[j]
-                if j > mb:
-                    v = POS
-                else:
-                    tj = int(t[b, j - 1])
-                    mis = int(si != tj or si >= 4 or tj >= 4)
-                    v = min(diag + mis, up + 1, left + 1)
-                    cov["cell"] += 1
-                row[j] = left = v
-                diag = up
-            if end:
-                bk, be, bi = upd(i, bk, be, bi)
-        out[b] = (be, bi) if end else row[mc]
+        cov["lanes" if lanes else "smem_row"] += 1
+        out[b] = (_tiny_lanes if lanes else _tiny_row)(
+            s[b], t[b], nb, mb, MM=MM, w=w, max_ed=max_ed, end=end, cov=cov)
     return out
 
 
+@pytest.mark.parametrize("share", SHARES)
 @pytest.mark.parametrize("w", [0, 1, 3, 5, 14])
-def test_tiny_dp_loop_order_matches_plain(w):
+def test_tiny_dp_loop_order_matches_plain(w, share):
     cov = Counter()
     for end in (True, False):
         arrays, kw = tiny_dp_inputs(np.random.default_rng(70 + w), 200, w,
-                                    end=end)
+                                    end=end, share=SHARES[share])
         got = tiny_scalar(*arrays, **kw, cov=cov)
         want = twalk.tiny_dp(*_torch(arrays), **kw)
         assert np.array_equal(got, want.numpy()), end
-    need = {"n_clamped", "m_clamped", "cell"}
-    if w:       # at w = 0 the only candidate is i = m
-        need |= {"cand_better", "cand_worse", "cand_ed_tie", "cand_key_tie",
-                 "cand_indel_sign_tie"}
+    need = {"pass_through"} if share != "all" else set()
+    if share != "none":
+        need |= {"n_clamped", "m_clamped", "cell", "lanes", "column0"}
+        if w > 3:   # END's TN = TM = 2w + 2 > TINY_REG: rows in shared memory
+            need.add("smem_row")
+        if w:       # at w = 0 the only candidate is i = m
+            need |= {"cand_better", "cand_worse", "cand_ed_tie",
+                     "cand_key_tie", "cand_indel_sign_tie"}
     assert need <= {k for k, v in cov.items() if v}, need - set(cov)
 
 
@@ -464,7 +629,8 @@ def test_kernel_args_follow_the_specs():
         len(twalk.FOLD_OUT), t[8].shape[0])
     _args_ok("walk_fold", twalk.walk_fold_args(*t, out.contiguous()))
     for end in (True, False):
-        arrays, kw = tiny_dp_inputs(np.random.default_rng(5), 9, 3, end=end)
+        arrays, kw = tiny_dp_inputs(np.random.default_rng(5), 9, 3, end=end,
+                                    share=0.5)
         t = _torch(arrays)
         out = twalk.tiny_dp(*t, **kw)
         _args_ok("tiny_dp", twalk.tiny_dp_args(*t, out, end=end))
@@ -473,6 +639,15 @@ def test_kernel_args_follow_the_specs():
     out = twalk.walk_scan(*t, **kw)
     assert out.dtype == torch.int32 and out.shape == t[0].shape
     _args_ok("walk_scan", twalk.walk_scan_args(*t, out))
+    # each C entry point takes the spec's tensors, then its statics
+    with open(f"{_ext._CSRC}/walk.cu") as f:
+        src = f.read()
+    for name in ("walk_fold", "tiny_dp", "walk_scan"):
+        spec = _ext.KERNELS[name]
+        sig = re.search(rf'extern "C" int {spec.sym}\(([^)]*)\)',
+                        src).group(1)
+        params = [q.split()[-1].lstrip("*") for q in sig.split(",")]
+        assert params == [*spec.tensors, *spec.statics, "stream"], name
 
 
 def _enum(src, name):
@@ -499,29 +674,56 @@ def test_walk_enums_and_constants_follow_python():
                                        for k in twalk.SLOT_KEYS] + ["SL_NF"]
     assert _enum(src, "LaneField") == ["LN_" + k.upper()
                                        for k in twalk.LANE_KEYS] + ["LN_NF"]
+    assert _enum(src, "WalkKernel") == ["WALK_FOLD", "WALK_TINY",
+                                        "WALK_SCAN"]
+    assert WALK_EMPTY == {"walk_fold": 0, "tiny_dp": 1, "walk_scan": 2}
     consts = dict(re.findall(r"constexpr int (\w+) = (-?\d+);", src))
     assert int(consts["NEG_SCORE"]) == NEG_SCORE
     assert int(consts["POS"]) == POS
     assert "if (row * nt > 48 * 1024)" in src and \
         twalk.TINY_MM_MAX == 48 * 1024 // (4 * 32) - 1
+    assert "if (ST > FOLD_T || EW > 2 * FOLD_EW)" in src
+    assert (twalk.FOLD_ST_MAX, twalk.FOLD_EW_MAX) == (
+        int(consts["FOLD_T"]), 2 * int(consts["FOLD_EW"]))
+    assert twalk.STW <= twalk.FOLD_ST_MAX
+
+
+class _Cuda(torch.Tensor):
+    """A CPU tensor that takes a wrapper's card path."""
+    @property
+    def is_cuda(self):
+        return True
 
 
 def test_tiny_dp_refuses_rows_it_cannot_read():
     """On a CUDA tensor the wrapper checks NM / MM against the rows before
     it builds; on the CPU the plain version runs (a fake tensor that
     reports is_cuda takes the card path here)."""
-    class Cuda(torch.Tensor):
-        @property
-        def is_cuda(self):
-            return True
+    Cuda = _Cuda
     s = torch.zeros((3, 6), dtype=torch.int8).as_subclass(Cuda)
     n = torch.zeros(3, dtype=torch.int32)
+    tiny = torch.ones(3, dtype=torch.bool)
+    banded = torch.zeros((3, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="tiny_dp reads"):
-        twalk.tiny_dp(s, s, n, n, NM=8, MM=8, w=3, max_ed=4, end=True)
+        twalk.tiny_dp(s, s, n, n, tiny, banded, NM=8, MM=8, w=3, max_ed=4,
+                      end=True)
     wide = torch.zeros((3, 400), dtype=torch.int8).as_subclass(Cuda)
     with pytest.raises(ValueError, match="at most"):
-        twalk.tiny_dp(wide, wide, n, n, NM=390, MM=390, w=194, max_ed=4,
-                      end=True)
+        twalk.tiny_dp(wide, wide, n, n, tiny, banded, NM=390, MM=390, w=194,
+                      max_ed=4, end=True)
+
+
+def test_walk_fold_refuses_lanes_it_cannot_hold():
+    """On a CUDA tensor the wrapper checks ST and EW against the kernel's
+    threads a lane and events a thread before it builds."""
+    for ST, EW in ((9, 4), (2, 9)):
+        arrays, kw, _, _ = fold_case(3)
+        events = torch.zeros((ST * EW, twalk.EV_NF, 40), dtype=torch.int32)
+        act = torch.zeros((ST, 40), dtype=torch.bool)
+        t = _torch(arrays)
+        with pytest.raises(ValueError, match="at most"):
+            twalk.walk_fold_lanes(events.as_subclass(_Cuda), act, *t[2:],
+                                  **kw)
 
 
 # --------------------------------------------------------------------------
@@ -538,24 +740,26 @@ def cuda_device():
 def _cases():
     """(kernel name, kernel call, plain call) on the card: the fold of
     every family and side, the tiny DP in both modes from w = 0 to a band
-    whose row lives in shared memory, the scan over ragged shapes."""
+    whose row lives in shared memory, with no row, half the rows or every
+    row falling back to it, the scan over ragged shapes."""
     out = []
-    for seed, (B, P, WPP, fam, left) in enumerate(
-            [(4096, 8, 6144, 0, True), (64, 8, 768, 2, False),
-             (3, 2, 5, 3, True), (33, 4, 129, 1, False)]):
+    for seed, (B, P, WPP, fam, left, EW) in enumerate(
+            [(4096, 8, 6144, 0, True, 4), (64, 8, 768, 2, False, 4),
+             (3, 2, 5, 3, True, 4), (33, 4, 129, 1, False, 7)]):
         rng = np.random.default_rng(seed)
         arrays, kw = walk_fold_inputs(rng, WPP, B * 2 * P, fam=fam,
-                                      left=left)
+                                      left=left, EW=EW)
         t = [x.cuda() for x in _torch(arrays)]
         out.append(("walk_fold",
                     lambda t=t, kw=kw: (twalk.walk_fold_lanes(*t, **kw),),
                     lambda t=t, kw=kw: (twalk._walk_fold_plain(*t, **kw),)))
-    for seed, (B, w, end) in enumerate([(512, 3, True), (4096, 3, False),
-                                        (1, 0, True), (300, 5, True),
-                                        (300, 31, True), (129, 62, True),
-                                        (77, 1, False)]):
+    for seed, (B, w, end, share) in enumerate(
+            [(512, 3, True, 0.5), (4096, 3, False, 0.5), (512, 3, True, 0.0),
+             (4096, 3, False, 1.0), (1, 0, True, 1.0), (300, 5, True, 0.5),
+             (300, 31, True, 1.0), (129, 62, True, 0.5),
+             (77, 1, False, 0.0)]):
         arrays, kw = tiny_dp_inputs(np.random.default_rng(seed), B, w,
-                                    end=end)
+                                    end=end, share=share)
         t = [x.cuda() for x in _torch(arrays)]
         out.append(("tiny_dp", lambda t=t, kw=kw: (twalk.tiny_dp(*t, **kw),),
                     lambda t=t, kw=kw: (twalk._tiny_dp_plain(*t, **kw),)))
