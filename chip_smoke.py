@@ -25,7 +25,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      walk_scan) bit-equal to their plain versions over WALK_SWEEP (every
      event kind, I32MAX bounds, bands up to w = 62, the main path's pool
      shapes, tiny-DP pools where no row, half and every row falls back),
-     eagerly and replayed from a CUDA graph; and chain_dp timed
+     eagerly and replayed from a CUDA graph; the chain stage's ends
+     (chain_cells in both seg_compact forms, extract_kbest) bit-equal to
+     their plain versions over END_SWEEP (chr21's main shapes, one
+     interval, gpu-chain's widest bucket, fallback, capped and incomplete
+     rows), eagerly and replayed from a CUDA graph; and chain_dp timed
      beside its
      plain version and bound at gpu-chain's S = 128 and 500 buckets
      (CHAIN_BUCKETS, which no chr21 read fills);
@@ -40,15 +44,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      kernel must have been launched by the gpu-wave run;
   5. the gpu-chain executor (lookup + dense chain DP on the card) on the
      same reads: equal to native pair for pair and event for event, with
-     the chain_dp launches by occupancy bucket;
+     the chain_dp launches by occupancy bucket, each with one chain_cells
+     launch;
   6. the main path, the gpu-full executor (the fused device_full_step
      on the card as one CUDA graph, captured at warm-up and replayed per
      batch; deferred reads replayed on the host) on the same reads: equal
-     to native, with the xdrop, one_side, edit_end, chain_dp,
-     mr_pair_fold, walk_fold, walk_scan and tiny_dp kernels each launched
-     on that run, counted per replay (replays times the launches the
-     capture recorded; chain_dp once, mr_pair_fold twice, walk_fold and
-     walk_scan four times, tiny_dp five times per replay); reported:
+     to native, with the xdrop, one_side, edit_end, chain_cells, chain_dp,
+     extract_kbest, mr_pair_fold, walk_fold, walk_scan and tiny_dp kernels
+     each launched on that run, counted per replay (replays times the
+     launches the capture recorded; chain_cells, chain_dp and
+     extract_kbest once, mr_pair_fold twice, walk_fold and walk_scan four
+     times, tiny_dp five times per replay); reported:
      pairs/s, reads deferred
      and their causes, and the device-busy share and per-stage device
      time (the cm.* spans) of one torch.profiler run of a map of the
@@ -62,7 +68,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      step, run eagerly, with the
      kernels' inputs recorded: launches per step and rows of each kernel,
      each bit-equal to its plain version there and timed, with its bound
-     (the chain DP's, the fold's and the walk kernels' inputs too; each
+     (the chain ends', the chain DP's, the fold's and the walk kernels'
+     inputs too; each
      walk kernel beside an empty kernel on its grid, the [launch-floor]
      line, and with the fallback rows of tiny_dp's pools and the fold's
      live lanes per family);
@@ -111,8 +118,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
  15. (run after phase 7) one 4,096-pair chr21 step of phase 6's pipeline
      with seg_compact forced False and True: bit-equal blobs; per form
      the ms per step (CUDA events, 3 steps after a warm-up), the peak
-     device memory of one step and cm.chain_prelude's device ms in one
-     profiled run of the step's chain prefix;
+     device memory of one step, and in one profiled run of the step's
+     chain prefix the one chain_cells launch both forms take on the card
+     and its device ms;
  16. (run after phase 7) the fused step's CUDA graph (ops/step_graph.py)
      on 4,096-pair chr21 batches: one eager step under
      torch.cuda.set_sync_debug_mode("error") (its aten ops counted, its
@@ -123,7 +131,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      other batches (the last a short one, padded) each bit-equal to the
      eager step on the same batch, ms per step graph against eager (CUDA
      events, in turns), peak device memory, and the device-busy share and
-     device ops per step of one profiled graph-mode map of phase 6's reads.
+     device ops per step of one profiled graph-mode map of phase 6's reads,
+     each hand kernel of the gpu-full path among them.
 
 A [phases] line gives each phase's wall seconds.
 
@@ -138,7 +147,8 @@ in phase 8, each counted from the end of its warm-up; launches_contigs in phase 
 gpu-full map and stage 2, counted so too;
 launches_mesh in phase 14's world-1 steps; ms, plain_ms, bound_ms at
 B = 1024 for the DP kernels, at the main path's recorded inputs for
-chain_dp, mr_pair_fold and the walk's kernels (tiny_dp's at its largest
+chain_cells, chain_dp, extract_kbest, mr_pair_fold and the walk's kernels
+(tiny_dp's at its largest
 pool, phase 1's 4,096 rows); main_ms per launch at the row counts of the
 main path; chain_dp's buckets at CHAIN_BUCKETS).
 """
@@ -159,15 +169,19 @@ WALK_SOURCE = "circminer_tpu_torch/csrc/walk.cu"
 SOURCES = {"chain_dp": "circminer_tpu_torch/csrc/chain_dp.cu",
            "mr_pair_fold": "circminer_tpu_torch/csrc/mr_fold.cu",
            "walk_fold": WALK_SOURCE, "tiny_dp": WALK_SOURCE,
-           "walk_scan": WALK_SOURCE}
+           "walk_scan": WALK_SOURCE,
+           "chain_cells": "circminer_tpu_torch/csrc/chain_cells.cu",
+           "extract_kbest": "circminer_tpu_torch/csrc/extract_kbest.cu"}
 WALK_KERNELS = ("walk_fold", "tiny_dp", "walk_scan")
+# the chain stage's two ends: the prelude's cells and the k-best extraction
+END_KERNELS = ("chain_cells", "extract_kbest")
 DP_KERNELS = ("xdrop", "edit_sc", "edit_end", "one_side")
 # in the gpu-full map
 FULL_KERNELS = ("xdrop", "one_side", "edit_end", "chain_dp", "mr_pair_fold",
-                *WALK_KERNELS)
+                *WALK_KERNELS, *END_KERNELS)
 # launches of one gpu-full step (and so of one replay)
 PER_STEP = {"chain_dp": 1, "mr_pair_fold": 2, "walk_fold": 4, "walk_scan": 4,
-            "tiny_dp": 5}
+            "tiny_dp": 5, "chain_cells": 1, "extract_kbest": 1}
 # the keys of every line of the reference bench (bench.py:329-343)
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "executor",
               "backend", "n_pairs", "genome_len", "events", "true_events",
@@ -185,6 +199,10 @@ REPLACES = {
     "tiny_dp": "circminer_tpu/ops/device_walk.py:65",
     # scan_step, run by fori_loop(0, KSCAN) at :366
     "walk_scan": "circminer_tpu/ops/device_walk.py:247",
+    # _chain_prelude's cells: the bisect at :380, the seg_compact forms :407
+    "chain_cells": "circminer_tpu/ops/chain.py:355",
+    # extract_kbest_device_staged: lax.sort :84, pick_body :144 / :158
+    "extract_kbest": "circminer_tpu/ops/device_finish.py:58",
 }
 
 
@@ -825,6 +843,100 @@ def walk_scan_inputs(rng, STW, WPP, *, NIV=200, NS=300, KSCAN=12):
             dict(KSCAN=KSCAN, G=G))
 
 
+def chain_cells_inputs(rng, B, NL, S, *, n_iv=40, P=4, k=5, max_ed=2):
+    """Adversarial inputs of the chain prelude's cells (``chain_cells``,
+    numpy): ascending interval starts with gaps, adjacent intervals and
+    repeated starts; positions before the first interval, in gaps, inside
+    intervals, within k of an interval's end (the k-mer crosses it), past
+    the last, at byte edges of a near-border bitmap that stops short
+    of the genome, negative, and ~5% of rows near INT32_MAX (the sums
+    wrap); segment counts 0 .. P, segment ends around the interval's end
+    with next-exon starts of 0 among them; aggregates drawn apart from the
+    segments (0 among them); counts from -1 past S; read lengths that make
+    read_remain negative.  n_iv = 1 is one interval."""
+    import numpy as np
+
+    def r(lo, hi, shape):
+        return rng.integers(lo, hi, size=shape).astype(np.int64)
+    M = NL * S
+    ln = r(1, 12, n_iv)
+    gap = np.where(rng.random(n_iv) < 0.2, 0, r(1, 9, n_iv))
+    spos = 20 + np.cumsum(ln + gap) - ln
+    for i in np.nonzero(rng.random(n_iv) < 0.1)[0]:
+        if i:
+            spos[i] = spos[i - 1]                  # a repeated start
+    epos = spos + ln - 1
+    G = int(epos.max()) + 24
+    iv_nseg = np.where(rng.random(n_iv) < 0.2, 0, r(1, P + 1, n_iv))
+    seg_end = epos[:, None] + r(-3, 10, (n_iv, P))
+    seg_next = np.where(rng.random((n_iv, P)) < 0.2, 0, r(1, G, (n_iv, P)))
+    aggr = [epos + r(-3, 10, n_iv) for _ in range(3)]
+    for a in aggr:
+        a[rng.random(n_iv) < 0.15] = 0
+    nb_bits = r(0, 256, max(1, G // 8 - 2)).astype(np.uint8)
+    # positions: a kind per cell
+    iv_of = r(0, n_iv, (B, M))
+    kind = rng.choice(7, size=(B, M), p=[0.3, 0.25, 0.1, 0.1, 0.1, 0.1,
+                                          0.05])
+    pos = np.select(
+        [kind == 0, kind == 1, kind == 2, kind == 3, kind == 4, kind == 5],
+        [spos[iv_of] + r(0, 12, (B, M)),            # inside or just past
+         epos[iv_of] - r(0, k, (B, M)),             # the k-mer crosses
+         epos[iv_of] + r(1, 9, (B, M)),             # a gap
+         r(-3, int(spos[0]) + 1, (B, M)),           # before the first
+         int(epos[-1]) + r(0, 30, (B, M)),          # past the last
+         8 * r(0, G // 8 + 3, (B, M)) + r(-1, 1, (B, M))],   # byte edges
+        r(-20, G + 40, (B, M)))
+    big = rng.random(B) < 0.05
+    big[-1] = True
+    pos[big] += 2 ** 31 - G - 2
+    cnt = r(-1, S + 2, (B, NL))
+    qpos = r(-1, k * NL + 2, (B, NL))
+    seq_len = r(0, k * NL + 30, B)
+    seq_len[rng.random(B) < 0.05] = -2 ** 31 + 3
+    arrays = (_wrap32(pos).reshape(B, NL, S), *map(_wrap32, (
+        cnt, qpos, seq_len)), nb_bits, *map(_wrap32, (
+            spos, epos, *aggr, iv_nseg, seg_end, seg_next)))
+    return arrays, dict(k=k, max_ed=max_ed, seg_pad=P)
+
+
+def extract_kbest_inputs(rng, R, NL, S, *, iters=48, C=7, k=5):
+    """Adversarial inputs of the k-best extraction (``extract_kbest``,
+    numpy): per row a share of event cells from none (the single-fragment
+    fallback) through sparse to dense (event cells that outnumber
+    ``iters``); back pointers into the next list (walks of every length up
+    to NL) or any cell (walks that loop); scores from a narrow window
+    (ties), rows where every cell ties, and _NEG, INT32_MIN and INT32_MAX
+    among them; positions from a window of 2, 8 or 1,000 a row, so that a
+    head is often a non-head fragment of an earlier chain (repeats, with
+    and without the best score); counts mostly S, else from -1 past S."""
+    import numpy as np
+
+    def r(lo, hi, shape):
+        return rng.integers(lo, hi, size=shape).astype(np.int64)
+    M = NL * S
+    dp = 10 * k + 10 * r(0, 6, (R, M))
+    odd = rng.random((R, M))
+    dp = np.where(odd < 0.03, -2 ** 29, np.where(
+        odd < 0.05, -2 ** 31, np.where(odd < 0.06, 2 ** 31 - 1, dp)))
+    dp[rng.random(R) < 0.2] = 10 * k + 30
+    l_of = np.arange(M) // S
+    nxt = np.where(l_of < NL - 1, (l_of + 1) * S + r(0, S, (R, M)), -1)
+    nxt = np.where(rng.random((R, M)) < 0.05, r(0, M, (R, M)), nxt)
+    share = np.array([0.0, 0.05, 0.2, 0.6, 0.95])[r(0, 5, R)]
+    back = np.where(rng.random((R, M)) < share[:, None], nxt, -1)
+    # an event cell needs back >= 0: the last list's come from loops only
+    pos = r(0, 1, (R, M)) + r(0, 1, (R, 1)) + rng.integers(
+        0, np.array([2, 8, 1000])[r(0, 3, R)][:, None], (R, M))
+    cnt = np.where(rng.random((R, NL)) < 0.8, S, r(-1, S + 2, (R, NL)))
+    qpos = r(0, k * NL + 5, (R, NL))
+    return ((_wrap32(dp).reshape(R, NL, S),
+             back.astype(np.int32).reshape(R, NL, S),
+             pos.astype(np.int32).reshape(R, NL, S),
+             qpos.astype(np.int32), cnt.astype(np.int32)),
+            dict(k=k, C=C, iters=iters))
+
+
 # the chain DP's adversarial sweep, (S, NL, P, rows): the gpu-chain
 # buckets' S (16, 128, 500), lists of reads up to 300 bases at k = 20 (NL
 # up to 15), P = seg_pad 16 (registers), 3 and 20 (the scan from memory)
@@ -843,12 +955,16 @@ FOLD_STEP_OPS = 100
 
 def tensor_kernel_calls(name, args, kw):
     """(kernel wrapper call, plain version call) of a ``launch_tensors``
-    kernel (chain_dp, mr_pair_fold or one of WALK_KERNELS) on these
-    arguments, each returning a tuple of tensors."""
+    kernel (chain_dp, mr_pair_fold, one of WALK_KERNELS or END_KERNELS) on
+    these arguments, each returning a tuple of tensors."""
     from circminer_tpu_torch.ops import chain_device as cd
+    from circminer_tpu_torch.ops import device_finish as fin
     from circminer_tpu_torch.ops import device_full as df
     from circminer_tpu_torch.ops import device_walk as dw
     fns = {"chain_dp": (cd.chain_dp, cd._chain_dp_plain),
+           "chain_cells": (cd.chain_cells, cd._chain_cells),
+           "extract_kbest": (fin.extract_kbest_device,
+                             fin.extract_kbest_device_staged),
            "mr_pair_fold": (df.mr_pair_fold, df._mr_pair_fold_plain),
            "walk_fold": (dw.walk_fold_lanes, dw._walk_fold_plain),
            "tiny_dp": (dw.tiny_dp, dw._tiny_dp_plain),
@@ -981,6 +1097,71 @@ def phase_walk(device, seed=17):
         f"{ {k: v for k, v in WALK_SWEEP.items()} } "
         f"({time.perf_counter() - t0:.1f} s; adversarial inputs: "
         f"walk_fold_inputs, tiny_dp_inputs, walk_scan_inputs)")
+
+
+# the chain ends' adversarial sweep: chain_cells (rows, NL, S,
+# chain_cells_inputs options) at chr21's main shape (16,384 rows of 6 x
+# 16, seg_pad 16), one interval, one segment slot, and gpu-chain's widest
+# bucket (NL = 15, S = 500: M = 7,500 cells a row), each in both
+# seg_compact forms; extract_kbest (rows, NL, S, iters, C) at chr21's
+# main shape (C = KB + 1 = 7, EX_ITERS = 48), ragged and long lists, picks
+# above M / 2, no pick, no slot, C above 32
+END_SWEEP = {
+    "chain_cells": ((16384, 6, 16, dict(n_iv=2000, P=16)),
+                    (257, 6, 16, dict(n_iv=1)), (33, 3, 7, dict(P=1)),
+                    (128, 15, 500, dict(n_iv=500, P=16)), (1, 1, 1, {})),
+    "extract_kbest": ((16384, 6, 16, 48, 7), (4097, 6, 16, 48, 7),
+                      (300, 3, 20, 48, 7), (64, 15, 16, 48, 7),
+                      (33, 2, 30, 60, 3), (9, 6, 16, 0, 7),
+                      (12, 6, 16, 48, 0), (40, 1, 40, 40, 40)),
+}
+
+
+def end_case(name, spec, device, seed):
+    """(tensors on ``device``, kw) of one END_SWEEP case of ``name``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if name == "chain_cells":
+        B, NL, S, opt = spec
+        arrs, kw = chain_cells_inputs(rng, B, NL, S, **opt)
+    else:
+        R, NL, S, iters, C = spec
+        arrs, kw = extract_kbest_inputs(rng, R, NL, S, iters=iters, C=C)
+    return [torch.from_numpy(np.require(a, requirements="C")).to(device)
+            for a in arrs], kw
+
+
+def phase_chain_ends(device, seed=23):
+    """Phase 2 for the chain stage's ends (chain_cells in both seg_compact
+    forms, extract_kbest): each bit-equal to its plain version on the card
+    over END_SWEEP, once eagerly and once replayed from a captured CUDA
+    graph (its outputs overwritten before the replay)."""
+    import torch
+    t0 = time.perf_counter()
+    n = 0
+    for name, specs in END_SWEEP.items():
+        for k, spec in enumerate(specs):
+            args, kw = end_case(name, spec, device, seed + 41 * k)
+            forms = ((dict(kw, seg_compact=False), dict(kw, seg_compact=True))
+                     if name == "chain_cells" else (kw,))
+            for kwf in forms:
+                kern, plain = tensor_kernel_calls(name, args, kwf)
+                tag = f" ({spec}, {kwf})"
+                hold_outputs(name, kern, plain, tag)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    out = kern()
+                # chain_cells' posf is a view of its input
+                for x in out[1:] if name == "chain_cells" else out:
+                    x.fill_(True if x.dtype == torch.bool else -7)
+                graph.replay()
+                hold_outputs(name, lambda: out, plain, tag + " replayed")
+                n += 1
+    log(f"[kernels] chain_cells (both seg_compact forms) and extract_kbest "
+        f"bit-equal to plain, eagerly and replayed from a CUDA graph, over "
+        f"{n} cases {END_SWEEP} ({time.perf_counter() - t0:.1f} s; "
+        f"adversarial inputs: chain_cells_inputs, extract_kbest_inputs)")
 
 
 # gpu-chain's occupancy buckets above S = 16 at their row chunks
@@ -1148,6 +1329,118 @@ def walk_work(name, args, kw):
     return nbytes, steps * SCAN_STEP_OPS
 
 
+# floors of the chain ends' int32 operations: per cell of chain_cells (its
+# valid bit, the bit lookup, the bounds' sums, minima and selects), per
+# bisect step (the load's compare and the halving) and per segment scanned
+# (a compare, three selects); per cell of extract_kbest (its event test and
+# key), per compare of a comparison sort of a row's M keys, per walked
+# fragment (two loads, the back-pointer test), per repeat test of the
+# emission (a fragment's length and position compares), per output word
+CC_CELL_OPS = 40
+CC_BISECT_OPS = 3
+CC_SEGMENT_OPS = 4
+EX_CELL_OPS = 6
+EX_SORT_OPS = 2
+EX_FRAGMENT_OPS = 6
+EX_REPEAT_OPS = 4
+
+
+def chain_cells_work(pos, cnt, qpos, seq_len, nb_bits, iv_spos, iv_epos,
+                     iv_max_end, iv_min_end, iv_max_next, iv_nseg, seg_end,
+                     seg_next, *, seg_pad, k, **_):
+    """(bytes, int32 ops) that chain_cells needs on these inputs: each
+    cell's position in and six words out (validf a byte), the per-list
+    count and query offset, each read length; the bitmap bytes, the
+    intervals (six words: the cell's and the next one's start) and the
+    segments (of intervals whose k-mer crosses the end) that some cell
+    reads, each once; the operations per cell, per bisect step taken
+    (counted by running the bisect on these positions) and per segment
+    scanned."""
+    import torch
+    B, NL, S = pos.shape
+    n_iv = iv_spos.shape[0]
+    p = pos.reshape(-1).long()
+    pb = torch.clamp(p, 0, nb_bits.numel() * 8 - 1) >> 3
+    lo = torch.zeros_like(p)
+    hi = torch.full_like(p, n_iv)
+    steps = 0
+    while bool((lo < hi).any()):
+        act = lo < hi
+        steps += int(act.sum())
+        mid = (lo + hi) >> 1
+        right = iv_spos[torch.clamp(mid, 0, n_iv - 1)].long() <= p
+        lo = torch.where(act & right, mid + 1, lo)
+        hi = torch.where(act & ~right, mid, hi)
+    iv = torch.clamp(lo - 1, min=0)
+    ivs = torch.unique(torch.cat([iv, lo[lo < n_iv]]))
+    cross = ((p + k - 1) > iv_epos[iv].long())
+    nseg = torch.clamp(iv_nseg[iv].long(), 0, seg_pad)
+    seg_ivs = torch.unique(iv[cross])
+    seg_words = int(torch.clamp(iv_nseg[seg_ivs].long(), 0, seg_pad).sum())
+    cells = B * NL * S
+    nbytes = cells * (4 + 5 * 4 + 1) + B * NL * 8 + B * 4 \
+        + int(torch.unique(pb).numel()) + 6 * 4 * int(ivs.numel()) \
+        + 2 * 4 * seg_words
+    ops = cells * CC_CELL_OPS + steps * CC_BISECT_OPS \
+        + int(nseg[cross].sum()) * CC_SEGMENT_OPS
+    return nbytes, ops
+
+
+def extract_kbest_work(dp10, back, pos, qpos, cnt, *, C, iters, **_):
+    """(bytes, int32 ops) that extract_kbest needs on these inputs: each
+    row's scores, back pointers, counts and query offsets in (every cell's
+    event bit and key), the positions of the cells its walks and its
+    fallback read, the outputs out; the operations per cell, a comparison
+    sort's M log2 M compares a row (not the kernel's M^2 ranks), per walked
+    fragment and per repeat test (counted by running the plain version's
+    walks and emission on these inputs), per output word."""
+    import math
+    import torch
+    from circminer_tpu_torch.ops.device_finish import \
+        extract_kbest_device_staged
+    R, NL, S = dp10.shape
+    M = NL * S
+    kw = dict(k=0, C=C, iters=iters)
+    sidx, nv = extract_kbest_device_staged(dp10, back, pos, qpos, cnt,
+                                           upto="sort", **kw)
+    cn, emitted = extract_kbest_device_staged(dp10, back, pos, qpos, cnt,
+                                              upto="emit", **kw)
+    T = min(iters, M)
+    live = torch.arange(T, device=dp10.device)[None, :] < nv[:, None]
+    cur = sidx[:, :T].long()
+    bk = back.reshape(R, M).long()
+    act = live.clone()
+    frags = 0
+    lens = torch.zeros((R, T), dtype=torch.long, device=dp10.device)
+    for _ in range(NL):
+        frags += int(act.sum())
+        lens += act
+        nxt = torch.gather(bk, 1, cur)
+        act = act & (nxt >= 0)
+        cur = torch.where(act, nxt, cur)
+    # a pick below the row's best score, taken while fewer than C were
+    # emitted, tests the non-head fragments of the picks emitted before it
+    dpf = dp10.reshape(R, M)
+    l_of = torch.arange(M, device=dp10.device) // S
+    ev = (torch.arange(M, device=dp10.device) % S < cnt[:, l_of]) & (bk >= 0)
+    best = torch.where(ev, dpf, -2 ** 29).amax(dim=1, keepdim=True)
+    below = torch.gather(dpf, 1, sidx[:, :T].long()) < best
+    frag = torch.where(emitted[:, :T], lens - 1, 0)
+    n_before = torch.cumsum(emitted[:, :T].long(), dim=1) \
+        - emitted[:, :T].long()
+    tested = live & below & (n_before < C)
+    tests = int(torch.where(tested, torch.cumsum(frag, dim=1) - frag,
+                            0).sum())
+    fallback = int((cn == 0).sum())
+    out_words = R * (2 * C * NL + 2 * C + 1)
+    nbytes = R * M * 8 + R * NL * 8 + 4 * frags + 8 * C * fallback \
+        + 4 * out_words + R
+    ops = R * M * EX_CELL_OPS \
+        + R * M * max(1, math.ceil(math.log2(M))) * EX_SORT_OPS \
+        + frags * EX_FRAGMENT_OPS + tests * EX_REPEAT_OPS + out_words
+    return nbytes, ops
+
+
 def tensor_kernel_bound(name, args, kw):
     """(bound ms, what sets it, int32 ops): the bytes these inputs need,
     each read once and each output written once, over HBM bandwidth,
@@ -1156,6 +1449,10 @@ def tensor_kernel_bound(name, args, kw):
     if name == "chain_dp":
         nbytes = chain_dp_bytes(*args, **kw)
         ops = chain_dp_work(*args, **kw)
+    elif name == "chain_cells":
+        nbytes, ops = chain_cells_work(*args, **kw)
+    elif name == "extract_kbest":
+        nbytes, ops = extract_kbest_work(*args, **kw)
     elif name in WALK_KERNELS:
         nbytes, ops = walk_work(name, args, kw)
     else:
@@ -1170,16 +1467,19 @@ def tensor_kernel_bound(name, args, kw):
 
 
 def recording_tensor_kernels(store):
-    """Wrap the wrappers of the ``launch_tensors`` kernels (chain_dp,
-    mr_pair_fold, walk_fold_lanes, tiny_dp, walk_scan) where the step
-    calls them, so that the first inputs of each (kernel, rows) are kept in
-    ``store`` and every call is counted there; returns the function that
-    undoes it.  A walk_fold's rows are its pool lanes, walk_scan's its
-    (slot, lane) pairs."""
+    """Wrap the wrappers of the ``launch_tensors`` kernels (chain_cells,
+    chain_dp, extract_kbest_device, mr_pair_fold, walk_fold_lanes, tiny_dp,
+    walk_scan) where the step calls them, so that the first inputs of each
+    (kernel, rows) are kept in ``store`` and every call is counted there;
+    returns the function that undoes it.  A walk_fold's rows are its pool
+    lanes, walk_scan's its (slot, lane) pairs."""
     from circminer_tpu_torch.ops import chain_device as cd
+    from circminer_tpu_torch.ops import device_finish as fin
     from circminer_tpu_torch.ops import device_full as df
     from circminer_tpu_torch.ops import device_walk as dw
-    sites = [("chain_dp", cd, "chain_dp"),
+    sites = [("chain_cells", cd, "chain_cells"),
+             ("extract_kbest", fin, "extract_kbest_device"),
+             ("chain_dp", cd, "chain_dp"),
              ("mr_pair_fold", df, "mr_pair_fold"),
              ("walk_fold", dw, "walk_fold_lanes"), ("tiny_dp", dw, "tiny_dp"),
              ("tiny_dp", df, "tiny_dp"), ("walk_scan", dw, "walk_scan")]
@@ -1379,13 +1679,16 @@ def phase_seg_compact(full, reads, cfg, device, batch=4096):
     """Phase 15: one chr21 step of phase 6's pipeline in both forms of the
     chain prelude (seg_compact False / True): bit-equal blobs; per form the
     ms per step (CUDA events, 3 steps after a warm-up), the peak device
-    memory of one step, and the device ms of cm.chain_prelude in one
-    profiled run of the step's chain prefix (bisect_device_full's "chain"
-    stage: lookup, gather and chain DP on the step's inputs; a profiled
-    whole step costs ~25 s of the profiler's own host time)."""
+    memory of one step, and in one profiled run of the step's chain prefix
+    (bisect_device_full's "chain" stage: lookup, gather and chain DP on the
+    step's inputs; a profiled whole step costs ~25 s of the profiler's own
+    host time) the one chain_cells launch that both forms take on the card
+    and its device ms (the cm.* spans leave out the ctypes-launched
+    kernels)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from circminer_tpu_torch.ops import _ext
     from circminer_tpu_torch.tools.bisect_device_full import stage_functions
     pipe = full["pipe"]
     st = pipe.states[0]
@@ -1404,25 +1707,28 @@ def phase_seg_compact(full, reads, cfg, device, batch=4096):
         before = torch.cuda.memory_allocated(device)
         blobs[flag] = step().cpu()
         peak = torch.cuda.max_memory_allocated(device)
+        _ext.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(512):      # the tracer's lost first records
                 torch.cuda._sleep(1)
             chain(*args)
             torch.cuda.synchronize()
-        prelude = sum(e.device_time_total for e in prof.key_averages()
-                      if e.key == "cm.chain_prelude"
-                      and e.device_type == DeviceType.CPU) / 1e3
-        check(prelude > 0, f"seg_compact={flag}: the profiled chain prefix "
-              f"shows no device time under cm.chain_prelude")
+        cells = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and "chain_cells_kernel" in e.name]
+        prelude = sum(e.time_range.elapsed_us() for e in cells) / 1e3
+        check(_ext.LAUNCHES["chain_cells"] == 1 and len(cells) == 1,
+              f"seg_compact={flag}: the chain prefix launched chain_cells "
+              f"{_ext.LAUNCHES['chain_cells']} times ({len(cells)} traced), "
+              f"not once")
         forms[flag] = dict(ms=ms, peak_gb=peak / 1e9,
                            step_gb=(peak - before) / 1e9,
                            prelude_ms=prelude)
         log(f"[seg-compact] seg_compact={flag}: {ms:.1f} ms per {batch}-pair "
             f"step (CUDA events, 3 steps after a warm-up), peak device "
             f"memory {peak / 1e9:.3f} GB ({(peak - before) / 1e9:.3f} GB "
-            f"above the resident tables), cm.chain_prelude {prelude:.3f} ms "
-            f"of device time in the step's profiled chain prefix")
+            f"above the resident tables); the chain prefix's prelude is one "
+            f"chain_cells launch, {prelude:.4f} ms of device time")
     bad = (blobs[False] != blobs[True]).any(dim=1).nonzero()[:, 0]
     check(len(bad) == 0, f"seg_compact=True differs from False on "
           f"{len(bad)} of {batch} chr21 rows, first {bad[:3].tolist()}")
@@ -1517,13 +1823,16 @@ def phase_graph(full, reads, cfg, device, batch=4096):
         f"eager, eager, graph): graph {ms['graph']}, eager {ms['eager']}")
     graph.drop()
     r0 = pipe.full_graph.replays
-    wall, busy, _, kern, n_dev = profile_map(pipe, reads, cfg)
+    wall, busy, _, kern, n_dev, hand = profile_map(pipe, reads, cfg)
     n_rep = pipe.full_graph.replays - r0
     log(f"[graph] profiled graph-mode map of {len(reads)} pairs: wall "
         f"{wall:.3f} s, device busy {busy:.4f} s "
         f"({100.0 * busy / wall:.2f}%); {n_dev} device ops over {n_rep} "
         f"replays and the host replay's copies ({n_dev / n_rep:.0f} per "
-        f"replay)")
+        f"replay); device records of the hand kernels {hand}")
+    missing = [name for name, n in hand.items() if n == 0]
+    check(not missing, f"the profiled replays show no device record of "
+          f"{missing}")
     for name, t in kern:
         log(f"[graph]   kernel {name[:70]}: device {t:.2f} ms")
     return dict(ms=ms, capture_s=graph.capture_s,
@@ -1547,16 +1856,22 @@ def c_params(src):
 # the --ab cases: the DP kernels' rows at band w = 3, chain_dp's (S, NL,
 # rows) at P = 16 (chr21's main shape on adversarial inputs and
 # gpu-chain's two wide buckets; then one chr21 step's recorded inputs),
-# the fold's (reads, P_MAX), the walk kernels' WALK_SWEEP specs (then one
-# chr21 step's recorded inputs); each with its iterations per timing
+# the fold's (reads, P_MAX), the walk kernels' WALK_SWEEP specs and the
+# chain ends' END_SWEEP specs (chr21's main shape, chain_cells also at
+# gpu-chain's widest bucket; each then one chr21 step's recorded inputs);
+# each with its iterations per timing
 AB_ROWS = (1024, 4096, 8192, 512)
 AB_CHAIN = ((16, 6, 16384), (128, 15, 2048), (500, 15, 128))
 AB_FOLD = ((4096, 8),)
+AB_END = {"chain_cells": ((16384, 6, 16, dict(n_iv=2000, P=16)),
+                          (128, 15, 500, dict(n_iv=500, P=16))),
+          "extract_kbest": ((16384, 6, 16, 48, 7),)}
 AB_WALK = {"walk_fold": ((4096, 8, 6144, 0, True),),
            "tiny_dp": tuple((B, 3, end, share) for B, end in (
                (512, True), (4096, False)) for share in (0.0, 0.5, 1.0)),
            "walk_scan": ((8, 6144, 12),)}
-AB_ITERS = {"chain_dp": 20, "mr_pair_fold": 50}
+AB_ITERS = {"chain_dp": 20, "mr_pair_fold": 50, "chain_cells": 50,
+            "extract_kbest": 50}
 
 
 def ab_cases(names, w=3, seed=19):
@@ -1604,22 +1919,27 @@ def ab_cases(names, w=3, seed=19):
         [rec] = chr21_step_inputs("chain_dp")
         yield chain_case(f"chr21 step, b={rec['args'][0].shape[0]}",
                          rec["args"], rec["kw"])
-    for name in WALK_KERNELS:
+    for name in (*WALK_KERNELS, *END_KERNELS):
         if name not in names:
             continue
         spec = _ext.KERNELS[name]
-        cases = [(str(case), *walk_case(name, case, torch.device("cuda"),
-                                        seed + k))
-                 for k, case in enumerate(AB_WALK[name])]
+        case_of, specs = ((walk_case, AB_WALK[name]) if name in WALK_KERNELS
+                          else (end_case, AB_END[name]))
+        cases = [(str(case), *case_of(name, case, torch.device("cuda"),
+                                      seed + k))
+                 for k, case in enumerate(specs)]
         cases += [(f"chr21 step, {rec['rows']} rows", rec["args"],
                    rec["kw"]) for rec in chr21_step_inputs(name)]
+        # the outputs: a walk kernel's one, the chain ends' six (chain_cells'
+        # posf is its input)
+        n_out = 1 if name in WALK_KERNELS else 6
         for tag, args, kw in cases:
             kern, plain = tensor_kernel_calls(name, args, kw)
             got = launch_record(kern)
             yield (name, tag,
                    dict(zip(spec.tensors, got["args"]),
                         **dict(zip(spec.statics, got["statics"]))),
-                   spec.tensors[-1:], plain())
+                   spec.tensors[-n_out:], plain()[-n_out:])
     if "mr_pair_fold" in names:
         for B, P in AB_FOLD:
             arrs, kw = fold_inputs(np.random.default_rng(seed), B, P)
@@ -1977,7 +2297,7 @@ def check_equal_to_native(tag, run, native):
 
 def phase_chain(cfg, gi, db, reads, native, device, batch=4096):
     """gpu-chain against native; the chain_dp kernel's launches by
-    occupancy bucket (S) of the run."""
+    occupancy bucket (S) of the run, each with its chain_cells launch."""
     from circminer_tpu_torch.ops import _ext
     from circminer_tpu_torch.ops import chain_device as cd
     wrapper, by_s = cd.chain_dp, {}
@@ -1996,9 +2316,11 @@ def phase_chain(cfg, gi, db, reads, native, device, batch=4096):
     finally:
         cd.chain_dp = wrapper
     check_equal_to_native("gpu-chain", chain, native)
-    check(_ext.LAUNCHES["chain_dp"] == sum(by_s.values()) > 0,
-          f"gpu-chain launched chain_dp {_ext.LAUNCHES['chain_dp']} times "
-          f"for {by_s} calls by bucket")
+    check(_ext.LAUNCHES["chain_dp"] == _ext.LAUNCHES["chain_cells"]
+          == sum(by_s.values()) > 0,
+          f"gpu-chain launched chain_dp {_ext.LAUNCHES['chain_dp']} and "
+          f"chain_cells {_ext.LAUNCHES['chain_cells']} times for {by_s} "
+          f"calls by bucket")
     log(f"[gpu-chain] chain_dp launches by occupancy bucket S: "
         f"{dict(sorted(by_s.items()))}")
     return chain
@@ -2043,7 +2365,8 @@ def run_full_step(pipe, st, args, statics):
 def profile_map(pipe, reads, cfg):
     """One traced map run: (wall s, device-busy s, {span: (cpu ms, device
     ms of the kernels it launched)}, [(kernel, device ms)] top 8, device
-    ops: kernels, copies and memsets)."""
+    ops: kernels, copies and memsets, {hand kernel of FULL_KERNELS: its
+    device records})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2067,7 +2390,9 @@ def profile_map(pipe, reads, cfg):
     spans = {e.key: (e.cpu_time_total / 1e3, e.device_time_total / 1e3)
              for e in prof.key_averages()
              if e.key.startswith("cm.") and e.device_type == DeviceType.CPU}
-    return wall, busy, spans, kern, len(dev_ev)
+    hand = {name: sum(f"{name}_kernel" in e.name for e in dev_ev)
+            for name in FULL_KERNELS}
+    return wall, busy, spans, kern, len(dev_ev), hand
 
 
 def phase_full(cfg, gi, db, reads, native, device, batch=4096):
@@ -2111,8 +2436,8 @@ def phase_full(cfg, gi, db, reads, native, device, batch=4096):
     # the profiler's own host cost is ~25 s per eager step: two steps
     pipe.step_graph = False
     try:
-        wall, busy, spans, kern, _ = profile_map(pipe, reads[:2 * batch],
-                                                 cfg)
+        wall, busy, spans, kern, _, _ = profile_map(
+            pipe, reads[:2 * batch], cfg)
     finally:
         pipe.step_graph = True
     log(f"[gpu-full] profiled map of {2 * batch} pairs, step run eagerly: "
@@ -2901,6 +3226,7 @@ def main() -> int:
         kern = phase_kernels(device)
         phase_chain_fold(device)
         phase_walk(device)
+        phase_chain_ends(device)
         buckets = phase_chain_buckets(device)
         lap("2 kernels")
         cfg, gi, db, reads, truth = chr21_setup()

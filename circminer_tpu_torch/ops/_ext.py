@@ -73,6 +73,16 @@ KERNELS = {
     "walk_scan": Kernel(
         "cm_walk_scan", ("STW", "WPP", "NIV", "NS", "G", "KSCAN"),
         ("ws", "slot", "lane", "iv_spos", "iv_epos", "t2s_state", "ws_out")),
+    "chain_cells": Kernel(
+        "cm_chain_cells", ("B", "NL", "S", "n_nb", "n_iv", "P", "seg_pad",
+                           "k", "max_ed"),
+        ("pos", "cnt", "qpos", "seq_len", "nb_bits", "iv_spos", "iv_epos",
+         "iv_max_end", "iv_min_end", "iv_max_next", "iv_nseg", "seg_end",
+         "seg_next", "qposf", "validf", "ub", "mee", "e1", "ol_iv")),
+    "extract_kbest": Kernel(
+        "cm_extract_kbest", ("R", "NL", "S", "C", "iters"),
+        ("dp10", "back", "pos", "qpos", "cnt", "rpos", "qp", "clen", "sc10",
+         "cn", "incomplete")),
 }
 DP_KERNELS = tuple(n for n, k in KERNELS.items() if k.tensors is None)
 I_KERNEL = 128  # DP extent of every kernel: cells i = 0 .. 127 of a diagonal

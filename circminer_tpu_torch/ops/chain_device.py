@@ -5,7 +5,9 @@ The host half of that module (``Chain``, ``extract_kbest``, ...) is the
 port's jax-free copy in ``ops/chain.py``, pinned source-identical to the
 reference; this module holds the dense device formulation:
 
-  * ``_chain_cells``: per seed cell, the reference's upper bound (the
+  * ``chain_cells`` (its plain version ``_chain_cells``, the
+    ``chain_cells`` kernel of csrc/chain_cells.cu on a CUDA tensor): per
+    seed cell, the reference's upper bound (the
     near_border bit, the exon interval containing the seed and its end
     aggregates, gene_annotation.h:123-133) and that interval (``ol_iv``,
     or -1), whose junction segments the transitions read;
@@ -22,7 +24,7 @@ reference; this module holds the dense device formulation:
     (csrc/chain_dp.cu), which ``chain_dp`` launches on a CUDA tensor and
     which reads the segments by interval, so that the card path builds no
     [M, P, b] table;
-  * ``chain_batch_device`` = ``_chain_cells`` + ``chain_dp``;
+  * ``chain_batch_device`` = ``chain_cells`` + ``chain_dp``;
     ``gather_and_chain_device`` = seed gather + chain DP.
 
 Scores are int32 in 0.1 units (score10 = 10 * score): alpha10 = 2e5 * k per
@@ -62,10 +64,10 @@ def chain_batch_device(pos, cnt, qpos, seq_len,
     [B, NL, S] final scores and flat backpointers into NL*S (or -1)."""
     B, NL, S = pos.shape
     with record_function("cm.chain_prelude"):
-        cells = _chain_cells(pos, cnt, qpos, seq_len, nb_bits, iv_spos,
-                             iv_epos, iv_max_end, iv_min_end, iv_max_next,
-                             iv_nseg, seg_end, seg_next, k=k, max_ed=max_ed,
-                             seg_pad=seg_pad, seg_compact=seg_compact)
+        cells = chain_cells(pos, cnt, qpos, seq_len, nb_bits, iv_spos,
+                            iv_epos, iv_max_end, iv_min_end, iv_max_next,
+                            iv_nseg, seg_end, seg_next, k=k, max_ed=max_ed,
+                            seg_pad=seg_pad, seg_compact=seg_compact)
     with record_function("cm.chain_dp"):
         return chain_dp(*cells, iv_nseg, seg_end, seg_next, NL=NL, S=S, k=k,
                         max_ed=max_ed, max_intron=max_intron,
@@ -234,14 +236,72 @@ def _chain_prelude(pos, cnt, qpos, seq_len,
                                       seg_pad, seg_compact))
 
 
+def chain_cells(pos, cnt, qpos, seq_len,
+                nb_bits, iv_spos, iv_epos, iv_max_end, iv_min_end,
+                iv_max_next, iv_nseg, seg_end, seg_next,
+                *, k: int, max_ed: int, seg_pad: int,
+                seg_compact: bool = False):
+    """The chain DP's cells, [B, M] each: (posf, qposf, validf, ub, mee,
+    e1, ol_iv).  On a CPU tensor the plain version ``_chain_cells`` (its
+    two ``seg_compact`` forms); on a CUDA tensor the ``chain_cells`` kernel,
+    one launch for both forms (it reads each cell's segments in place), or
+    a raise (no interval, no bitmap, or ``seg_pad`` above the tables'
+    width).  posf is a view of ``pos``."""
+    if not pos.is_cuda:
+        return _chain_cells(pos, cnt, qpos, seq_len, nb_bits, iv_spos,
+                            iv_epos, iv_max_end, iv_min_end, iv_max_next,
+                            iv_nseg, seg_end, seg_next, k=k, max_ed=max_ed,
+                            seg_pad=seg_pad, seg_compact=seg_compact)
+    B, NL, S = pos.shape
+    n_iv, P = seg_end.shape
+    if n_iv == 0 or nb_bits.numel() == 0 or seg_pad > P:
+        raise ValueError(f"chain_cells needs an interval, a bitmap byte and "
+                         f"seg_pad <= P: n_iv {n_iv}, {nb_bits.numel()} "
+                         f"bytes, seg_pad {seg_pad}, P {P}")
+    # the mesh's steps pass strided per-list views
+    pos, cnt, qpos, seq_len = (x.contiguous()
+                               for x in (pos, cnt, qpos, seq_len))
+    dev = pos.device
+    qposf, ub, mee, e1, ol_iv = (
+        torch.empty((B, NL * S), dtype=_i32, device=dev) for _ in range(5))
+    validf = torch.empty((B, NL * S), dtype=torch.bool, device=dev)
+    if B * NL * S:
+        _ext.launch_tensors(
+            "chain_cells", chain_cells_args(
+                pos, cnt, qpos, seq_len, nb_bits, iv_spos, iv_epos,
+                iv_max_end, iv_min_end, iv_max_next, iv_nseg, seg_end,
+                seg_next, qposf, validf, ub, mee, e1, ol_iv),
+            (B, NL, S, nb_bits.numel(), n_iv, P, seg_pad, k, max_ed))
+    return pos.reshape(B, NL * S), qposf, validf, ub, mee, e1, ol_iv
+
+
+def chain_cells_args(pos, cnt, qpos, seq_len, nb_bits, iv_spos, iv_epos,
+                     iv_max_end, iv_min_end, iv_max_next, iv_nseg, seg_end,
+                     seg_next, qposf, validf, ub, mee, e1, ol_iv):
+    """The (tensor, dtype, shape) arguments of the ``chain_cells`` kernel,
+    in its order: the chain's inputs, the annotation's bitmap and tables
+    as they are, the [B, M] cells it writes."""
+    B, NL, S = pos.shape
+    n_iv, P = seg_end.shape
+    rows = [(pos, _i32, (B, NL, S))]
+    rows += [(x, _i32, (B, NL)) for x in (cnt, qpos)]
+    rows += [(seq_len, _i32, (B,)), (nb_bits, torch.uint8, (nb_bits.numel(),))]
+    rows += [(x, _i32, (n_iv,)) for x in (iv_spos, iv_epos, iv_max_end,
+                                          iv_min_end, iv_max_next, iv_nseg)]
+    rows += [(x, _i32, (n_iv, P)) for x in (seg_end, seg_next)]
+    rows += [(qposf, _i32, (B, NL * S)), (validf, torch.bool, (B, NL * S))]
+    return rows + [(x, _i32, (B, NL * S)) for x in (ub, mee, e1, ol_iv)]
+
+
 def _chain_cells(pos, cnt, qpos, seq_len,
                  nb_bits, iv_spos, iv_epos, iv_max_end, iv_min_end,
                  iv_max_next, iv_nseg, seg_end, seg_next,
                  *, k: int, max_ed: int, seg_pad: int,
                  seg_compact: bool = False):
-    """Per-cell tensors of the chain DP, [B, M] each: (posf, qposf,
-    validf, ub, mee, e1, ol_iv), ol_iv the cell's exon interval or -1
-    (its junction segments are that interval's)."""
+    """The plain version of ``chain_cells``, on any device: per-cell
+    tensors of the chain DP, [B, M] each: (posf, qposf, validf, ub, mee,
+    e1, ol_iv), ol_iv the cell's exon interval or -1 (its junction
+    segments are that interval's)."""
     B, NL, S = pos.shape
     M = NL * S
     dev = pos.device

@@ -18,14 +18,31 @@ The loop is fixed-length (``iters`` event picks), so a row whose event list
 is longer than ``iters`` and still unfinished sets ``incomplete``, and the
 caller defers that row to the host pipeline.  Layout as in the reference:
 after the sort the row dimension R is last ([T, R], [T, M, R], [C, T, R]).
+
+``extract_kbest_device`` runs this plain version on a CPU tensor and the
+``extract_kbest`` kernel (csrc/extract_kbest.cu: a warp a row, the sort as
+exact ranks of the unique keys, the emission serial as here) on a CUDA
+tensor.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import _ext
+
 _i32 = torch.int32
 _NEG = -(2 ** 29)
+
+
+# shared memory a row of the extract_kbest kernel may take (its words:
+# keys [M], heads, lengths and scores [iters], walks 2 x [iters, NL],
+# emitted picks [C]; csrc/extract_kbest.cu::ex_words)
+EX_SMEM_MAX = 48 * 1024
+
+
+def extract_row_bytes(NL: int, S: int, C: int, iters: int) -> int:
+    return 4 * (NL * S + 3 * iters + 2 * iters * NL + C)
 
 
 def extract_kbest_device(dp10, back, pos, qpos, cnt, *, k: int, C: int,
@@ -34,15 +51,54 @@ def extract_kbest_device(dp10, back, pos, qpos, cnt, *, k: int, C: int,
 
     Returns (rpos [R,C,NL], qp [R,C,NL], clen [R,C], sc10 [R,C], cn [R],
     incomplete [R] bool), the layout of NativeChainer.extract_batch
-    (scores as int32 score10)."""
-    return extract_kbest_device_staged(dp10, back, pos, qpos, cnt, k=k, C=C,
-                                       iters=iters, upto="full")
+    (scores as int32 score10).  On a CPU tensor the plain version
+    (``extract_kbest_device_staged``, ``upto="full"``); on a CUDA tensor
+    the ``extract_kbest`` kernel (csrc/extract_kbest.cu), or a raise where
+    M = NL * S < iters or a row outgrows the kernel's shared memory."""
+    if not dp10.is_cuda:
+        return extract_kbest_device_staged(dp10, back, pos, qpos, cnt, k=k,
+                                           C=C, iters=iters, upto="full")
+    R, NL, S = dp10.shape
+    if NL * S < iters or extract_row_bytes(NL, S, C, iters) > EX_SMEM_MAX:
+        raise ValueError(f"extract_kbest takes iters <= M and at most "
+                         f"{EX_SMEM_MAX} B of shared memory a row: M = "
+                         f"{NL * S}, iters {iters}, C {C}, "
+                         f"{extract_row_bytes(NL, S, C, iters)} B")
+    dev = dp10.device
+    pos, qpos, cnt = (x.contiguous() for x in (pos, qpos, cnt))
+    rpos = torch.empty((R, C, NL), dtype=_i32, device=dev)
+    qp = torch.empty_like(rpos)
+    clen = torch.empty((R, C), dtype=_i32, device=dev)
+    sc10 = torch.empty_like(clen)
+    cn = torch.empty((R,), dtype=_i32, device=dev)
+    incomplete = torch.empty((R,), dtype=torch.bool, device=dev)
+    out = (rpos, qp, clen, sc10, cn, incomplete)
+    if R:
+        _ext.launch_tensors(
+            "extract_kbest", extract_kbest_args(dp10, back, pos, qpos, cnt,
+                                                *out, C=C),
+            (R, NL, S, C, iters))
+    return out
+
+
+def extract_kbest_args(dp10, back, pos, qpos, cnt, rpos, qp, clen, sc10, cn,
+                       incomplete, *, C: int):
+    """The (tensor, dtype, shape) arguments of the ``extract_kbest`` kernel,
+    in its order: the chain DP's [R, NL, S] tables and the [R, NL] lists,
+    then its six outputs."""
+    R, NL, S = dp10.shape
+    rows = [(x, _i32, (R, NL, S)) for x in (dp10, back, pos)]
+    rows += [(x, _i32, (R, NL)) for x in (qpos, cnt)]
+    rows += [(x, _i32, (R, C, NL)) for x in (rpos, qp)]
+    rows += [(x, _i32, (R, C)) for x in (clen, sc10)]
+    return rows + [(cn, _i32, (R,)), (incomplete, torch.bool, (R,))]
 
 
 def extract_kbest_device_staged(dp10, back, pos, qpos, cnt, *, k: int,
                                 C: int, iters: int = 48, upto: str = "full"):
-    """extract_kbest_device with the reference's stage cut points:
-    upto in ("sort", "walks", "emit", "assemble", "full")."""
+    """The plain version of ``extract_kbest_device``, on any device, with
+    the reference's stage cut points: upto in ("sort", "walks", "emit",
+    "assemble", "full")."""
     R, NL, S = dp10.shape
     M = NL * S
     dev = dp10.device

@@ -1,13 +1,14 @@
 """The gpu-full step as one captured CUDA graph (``ops/step_graph.py``).
 
 On the CPU: a sync audit of ``device_full_step`` (one step of
-tests/test_torch_full.py's tiny world with the nine kernel wrappers stubbed
+tests/test_torch_full.py's tiny world with the eleven kernel wrappers stubbed
 to their output shapes, under a TorchDispatchMode: no op that makes the
 host wait for the card, no boolean-mask indexing, every lifted scalar from
 a named site, each kernel wrapper called as often as a replay counts it
-and handed the dtypes and shapes its kernel takes, and the chain DP's, the
-pair steps', the walk scan's and the walk fold's spans free of unrolled
-loops); the runner's refusal of
+and handed the dtypes and shapes its kernel takes, and the chain
+prelude's, the chain DP's, the extraction's, the pair steps', the walk
+scan's and the walk fold's spans free of unrolled loops); the runner's
+refusal of
 the CPU; its key; the tracing flag the pipeline reads; and the CPU
 pipeline's eager plain step, bit-equal to a direct call of the step.
 
@@ -34,6 +35,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from circminer_tpu_torch.ops import _ext
 from circminer_tpu_torch.ops import chain_device as tchain
+from circminer_tpu_torch.ops import device_finish as tfin
 from circminer_tpu_torch.ops import device_full as tfull
 from circminer_tpu_torch.ops import device_walk as twalk
 from circminer_tpu_torch.ops.step_graph import StepGraph, step_key
@@ -66,7 +68,7 @@ LIFT_SITES = {
 # kernel launches of one step (PERF.md's per-step counts)
 PER_STEP = {"xdrop": 5, "edit_end": 4, "one_side": 1, "edit_sc": 0,
             "chain_dp": 1, "mr_pair_fold": 2, "walk_fold": 4, "walk_scan": 4,
-            "tiny_dp": 5}
+            "tiny_dp": 5, "chain_cells": 1, "extract_kbest": 1}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -138,13 +140,36 @@ def _kernel_args_ok(args):
 
 
 def _stubs(calls):
-    """The nine kernel wrappers as they are called from the step, each
+    """The eleven kernel wrappers as they are called from the step, each
     returning zeros of its output shape and counting its calls; all but
     the four DP kernels' check the arguments their kernels would get."""
     def out(name, s, k):
         calls[name] += 1
         z = torch.zeros(s.shape[0], dtype=torch.int32, device=s.device)
         return z if k == 1 else (z,) * k
+
+    def chain_cells(pos, cnt, qpos, seq_len, *anno, **kw):
+        calls["chain_cells"] += 1
+        B, NL, S = pos.shape
+        cells = [torch.zeros((B, NL * S), dtype=torch.int32)
+                 for _ in range(5)]
+        validf = torch.zeros((B, NL * S), dtype=torch.bool)
+        _kernel_args_ok(tchain.chain_cells_args(pos, cnt, qpos, seq_len,
+                                                *anno, cells[0], validf,
+                                                *cells[1:]))
+        return pos.reshape(B, NL * S), cells[0], validf, *cells[1:]
+
+    def extract_kbest_device(dp10, back, pos, qpos, cnt, *, C, **kw):
+        calls["extract_kbest"] += 1
+        R, NL, _ = dp10.shape
+        rpos = torch.zeros((R, C, NL), dtype=torch.int32)
+        clen = torch.zeros((R, C), dtype=torch.int32)
+        cn = torch.zeros((R,), dtype=torch.int32)
+        out = (rpos, rpos.clone(), clen, clen.clone(), cn,
+               torch.zeros((R,), dtype=torch.bool))
+        _kernel_args_ok(tfin.extract_kbest_args(dp10, back, pos, qpos, cnt,
+                                                *out, C=C))
+        return out
 
     def chain_dp(*pre, NL, S, **kw):
         calls["chain_dp"] += 1
@@ -189,7 +214,9 @@ def _stubs(calls):
         (tfull, "xdrop_batch"): lambda s, *a, **kw: out("xdrop", s, 3),
         (twalk, "xdrop_batch"): lambda s, *a, **kw: out("xdrop", s, 3),
         (twalk, "edit_end_rows"): edit_end_rows,
+        (tchain, "chain_cells"): chain_cells,
         (tchain, "chain_dp"): chain_dp,
+        (tfin, "extract_kbest_device"): extract_kbest_device,
         (tfull, "mr_pair_fold"): mr_pair_fold,
         (twalk, "walk_fold_lanes"): walk_fold_lanes,
         (twalk, "walk_scan"): walk_scan,
@@ -223,11 +250,13 @@ def test_fused_step_never_waits_for_the_device(world, monkeypatch):
     """One step of the tiny world under a TorchDispatchMode: none of the
     ops that read a device value back to the host, no boolean-mask
     indexing, every lifted scalar from a named site, and the kernels
-    launched 5 (xdrop), 4 (edit_end), 1 (one_side), 1 (chain_dp), 2
-    (mr_pair_fold), 4 (walk_fold), 4 (walk_scan) and 5 (tiny_dp) times.
-    The step dispatches 8,053 aten ops with the kernels stubbed: 8,062
-    before tiny_dp took its pools' select of the fallback rows, 39,031
-    before the walk's kernels."""
+    launched 5 (xdrop), 4 (edit_end), 1 (one_side), 1 (chain_cells), 1
+    (chain_dp), 1 (extract_kbest), 2 (mr_pair_fold), 4 (walk_fold), 4
+    (walk_scan) and 5 (tiny_dp) times.
+    The step dispatches 6,849 aten ops with the kernels stubbed: 8,053
+    before chain_cells and extract_kbest, 8,062 before tiny_dp took its
+    pools' select of the fallback rows, 39,031 before the walk's
+    kernels."""
     blob, audit, calls = _audited_step(world, monkeypatch)
     assert tuple(blob.shape) == (BATCH, tfull.MRF + 1)
     assert not audit.syncing, Counter(audit.syncing)
@@ -238,7 +267,7 @@ def test_fused_step_never_waits_for_the_device(world, monkeypatch):
     print(f"device_full_step at B = {BATCH}, kernels stubbed: {total} aten "
           f"ops per step; top {audit.ops.most_common(5)}; by innermost "
           f"span {audit.by_span.most_common()}")
-    assert total == 8_053
+    assert total == 6_849
 
 
 def test_walk_scan_and_fold_are_one_kernel_each(world, monkeypatch):
@@ -276,6 +305,17 @@ def test_chain_dp_and_pair_steps_are_one_kernel_each(world, monkeypatch):
     assert by_p[P]["cm.chain_dp"] <= 8, by_p[P]["cm.chain_dp"]
     assert 0 < by_p[P]["cm.mr_fold"] == by_p[2 * P]["cm.mr_fold"], \
         (by_p[P]["cm.mr_fold"], by_p[2 * P]["cm.mr_fold"])
+
+
+def test_chain_prelude_and_extraction_are_one_kernel_each(world,
+                                                         monkeypatch):
+    """With the kernels stubbed, cm.chain_prelude and cm.extract_kbest
+    dispatch a handful of aten ops per step (the contiguous inputs, the
+    outputs and the stub): 191 and 1,026 before their kernels."""
+    _, audit, calls = _audited_step(world, monkeypatch)
+    assert calls["chain_cells"] == calls["extract_kbest"] == 1
+    assert 0 < audit.by_span["cm.chain_prelude"] <= 8, audit.by_span
+    assert 0 < audit.by_span["cm.extract_kbest"] <= 8, audit.by_span
 
 
 def test_runner_refuses_the_cpu():
