@@ -29,7 +29,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (chain_cells in both seg_compact forms, extract_kbest) bit-equal to
      their plain versions over END_SWEEP (chr21's main shapes, one
      interval, gpu-chain's widest bucket, fallback, capped and incomplete
-     rows), eagerly and replayed from a CUDA graph; and chain_dp timed
+     rows, scores at and past the other cells' key 2^29, rows of exactly
+     0, 1, 31, 32, 33 and iters + 1 event cells, more than 64 picks, a
+     row of 15,000 cells whose walks read device memory), eagerly and
+     replayed from a CUDA graph; and chain_dp timed
      beside its
      plain version and bound at gpu-chain's S = 128 and 500 buckets
      (CHAIN_BUCKETS, which no chr21 read fills);
@@ -72,7 +75,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      inputs too; each
      walk kernel beside an empty kernel on its grid, the [launch-floor]
      line, and with the fallback rows of tiny_dp's pools and the fold's
-     live lanes per family);
+     live lanes per family; the extraction's rows by event count and by
+     the rank path they take, extract_paths);
   8. stage 2 of the gpu-full path on the card: the BSJ pairs of the
      phase-6 map (sorted as bench.py sorts them) through the port's
      ProcessCirc.run(device_ext=True) (speculate-and-select waves on the
@@ -904,12 +908,16 @@ def extract_kbest_inputs(rng, R, NL, S, *, iters=48, C=7, k=5):
     """Adversarial inputs of the k-best extraction (``extract_kbest``,
     numpy): per row a share of event cells from none (the single-fragment
     fallback) through sparse to dense (event cells that outnumber
-    ``iters``); back pointers into the next list (walks of every length up
-    to NL) or any cell (walks that loop); scores from a narrow window
-    (ties), rows where every cell ties, and _NEG, INT32_MIN and INT32_MAX
-    among them; positions from a window of 2, 8 or 1,000 a row, so that a
-    head is often a non-head fragment of an earlier chain (repeats, with
-    and without the best score); counts mostly S, else from -1 past S."""
+    ``iters``), and a quarter of the rows with exactly 0, 1, 31, 32, 33 or
+    iters + 1 event cells; back pointers into the next list (walks of
+    every length up to NL) or any cell (walks that loop); scores from a
+    narrow window (ties), rows where every cell ties, and _NEG (an event
+    key that ties with the other cells' 2^29), INT32_MIN (key INT32_MIN,
+    first), INT32_MAX and scores strictly between INT32_MIN and _NEG
+    (-2^30, _NEG - 1: events ranked after every other cell) among them;
+    positions from a window of 2, 8 or 1,000 a row, so that a head is
+    often a non-head fragment of an earlier chain (repeats, with and
+    without the best score); counts mostly S, else from -1 past S."""
     import numpy as np
 
     def r(lo, hi, shape):
@@ -918,7 +926,9 @@ def extract_kbest_inputs(rng, R, NL, S, *, iters=48, C=7, k=5):
     dp = 10 * k + 10 * r(0, 6, (R, M))
     odd = rng.random((R, M))
     dp = np.where(odd < 0.03, -2 ** 29, np.where(
-        odd < 0.05, -2 ** 31, np.where(odd < 0.06, 2 ** 31 - 1, dp)))
+        odd < 0.05, -2 ** 31, np.where(odd < 0.06, 2 ** 31 - 1, np.where(
+            odd < 0.065, -2 ** 30, np.where(odd < 0.07, -2 ** 29 - 1,
+                                            dp)))))
     dp[rng.random(R) < 0.2] = 10 * k + 30
     l_of = np.arange(M) // S
     nxt = np.where(l_of < NL - 1, (l_of + 1) * S + r(0, S, (R, M)), -1)
@@ -930,6 +940,15 @@ def extract_kbest_inputs(rng, R, NL, S, *, iters=48, C=7, k=5):
         0, np.array([2, 8, 1000])[r(0, 3, R)][:, None], (R, M))
     cnt = np.where(rng.random((R, NL)) < 0.8, S, r(-1, S + 2, (R, NL)))
     qpos = r(0, k * NL + 5, (R, NL))
+    # rows of an exact event count: every cell in count, n cells pointing
+    # back (into the next list, or anywhere from the last)
+    counts = np.array([0, 1, 31, 32, 33, iters + 1])[r(0, 6, R)]
+    anywhere = np.where(nxt >= 0, nxt, r(0, M, (R, M)))
+    for row in np.flatnonzero(rng.random(R) < 0.25):
+        cnt[row] = S
+        back[row] = -1
+        cells = rng.permutation(M)[:counts[row]]
+        back[row, cells] = anywhere[row, cells]
     return ((_wrap32(dp).reshape(R, NL, S),
              back.astype(np.int32).reshape(R, NL, S),
              pos.astype(np.int32).reshape(R, NL, S),
@@ -1105,7 +1124,10 @@ def phase_walk(device, seed=17):
 # bucket (NL = 15, S = 500: M = 7,500 cells a row), each in both
 # seg_compact forms; extract_kbest (rows, NL, S, iters, C) at chr21's
 # main shape (C = KB + 1 = 7, EX_ITERS = 48), ragged and long lists, picks
-# above M / 2, no pick, no slot, C above 32
+# above M / 2, no pick, no slot, C above 32, picks above the blocking masks'
+# 64, and a row of 15,000 cells, too wide to stage in shared memory (its
+# walks read device memory); every case's rows hold the 2^29 boundary's
+# scores and exact event counts (extract_kbest_inputs)
 END_SWEEP = {
     "chain_cells": ((16384, 6, 16, dict(n_iv=2000, P=16)),
                     (257, 6, 16, dict(n_iv=1)), (33, 3, 7, dict(P=1)),
@@ -1113,7 +1135,8 @@ END_SWEEP = {
     "extract_kbest": ((16384, 6, 16, 48, 7), (4097, 6, 16, 48, 7),
                       (300, 3, 20, 48, 7), (64, 15, 16, 48, 7),
                       (33, 2, 30, 60, 3), (9, 6, 16, 0, 7),
-                      (12, 6, 16, 48, 0), (40, 1, 40, 40, 40)),
+                      (12, 6, 16, 48, 0), (40, 1, 40, 40, 40),
+                      (64, 3, 40, 100, 9), (4, 15, 1000, 48, 7)),
 }
 
 
@@ -1441,6 +1464,31 @@ def extract_kbest_work(dp10, back, pos, qpos, cnt, *, C, iters, **_):
     return nbytes, ops
 
 
+def extract_paths(dp10, back, pos, qpos, cnt, *, C, iters, **_):
+    """What the extraction's inputs ask of its kernel: rows by event count
+    (n_valid) and by rank path (among the events alone, where every event
+    key is below the other cells' 2^29, else among every cell), and
+    whether a row's back pointers and positions fit the block's shared
+    memory beside its words (walks from shared or device memory)."""
+    import torch
+    from circminer_tpu_torch.ops import device_finish as fin
+    R, NL, S = dp10.shape
+    M = NL * S
+    dev = dp10.device
+    l_of = torch.arange(NL, device=dev).repeat_interleave(S)
+    s_of = torch.arange(S, dtype=torch.int32, device=dev).repeat(NL)
+    ev = (s_of[None, :] < cnt[:, l_of]) & (back.reshape(R, M) >= 0)
+    late = (ev & (-dp10.reshape(R, M) >= 2 ** 29)).any(1)
+    nv = ev.sum(1)
+    hist = torch.bincount(nv, minlength=1).tolist()
+    words = fin.extract_row_bytes(NL, S, C, iters) + 8 * M
+    return dict(n_valid={n: c for n, c in enumerate(hist) if c},
+                rows_ranked_among_events=int((~late).sum()),
+                rows_ranked_among_every_cell=int(late.sum()),
+                more_than_32_events=int((nv > 32).sum()),
+                walks_staged=words <= fin.EX_SMEM_MAX)
+
+
 def tensor_kernel_bound(name, args, kw):
     """(bound ms, what sets it, int32 ops): the bytes these inputs need,
     each read once and each output written once, over HBM bandwidth,
@@ -1588,6 +1636,9 @@ def time_tensor_kernels(store, where, iters=50):
             if shares:
                 log(f"[main-shapes] {name}'s inputs at {rows} rows: "
                     f"{shares}")
+        if name == "extract_kbest":
+            log(f"[main-shapes] extract_kbest's inputs at {rows} rows: "
+                f"{extract_paths(*args, **kw)}")
         res.setdefault(name, []).append(r)
         log(f"[main-shapes] {name} x{rec['count']} {where} at {rows} rows "
             f"({kw}): bit-equal to plain; "

@@ -20,9 +20,11 @@ caller defers that row to the host pipeline.  Layout as in the reference:
 after the sort the row dimension R is last ([T, R], [T, M, R], [C, T, R]).
 
 ``extract_kbest_device`` runs this plain version on a CPU tensor and the
-``extract_kbest`` kernel (csrc/extract_kbest.cu: a warp a row, the sort as
-exact ranks of the unique keys, the emission serial as here) on a CUDA
-tensor.
+``extract_kbest`` kernel (csrc/extract_kbest.cu: a warp a row on a
+persistent grid, the sort as exact ranks of the unique keys, among a
+row's event cells alone where their scores allow it, the walks through
+the row staged in shared memory, the emission serial as here over
+precomputed repeat masks) on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -35,14 +37,19 @@ _i32 = torch.int32
 _NEG = -(2 ** 29)
 
 
-# shared memory a row of the extract_kbest kernel may take (its words:
-# keys [M], heads, lengths and scores [iters], walks 2 x [iters, NL],
-# emitted picks [C]; csrc/extract_kbest.cu::ex_words)
-EX_SMEM_MAX = 48 * 1024
+# shared memory a row of the extract_kbest kernel must have, within the
+# block's opted-in EX_SMEM_MAX (its words, csrc/extract_kbest.cu::ex_words:
+# 64-bit keys [M], 64-bit blocking masks [iters] where iters <= 64, walk
+# cells [iters, NL], lengths, scores and head positions [iters], emitted
+# picks [C], rounded up to even; the row's back pointers and positions come
+# on top where they fit, else the walks read device memory)
+EX_SMEM_MAX = 232448
 
 
 def extract_row_bytes(NL: int, S: int, C: int, iters: int) -> int:
-    return 4 * (NL * S + 3 * iters + 2 * iters * NL + C)
+    words = 2 * NL * S + 2 * iters * (iters <= 64) + iters * NL \
+        + 3 * iters + C
+    return 4 * (words + words % 2)
 
 
 def extract_kbest_device(dp10, back, pos, qpos, cnt, *, k: int, C: int,
