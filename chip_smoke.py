@@ -22,9 +22,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      inputs: CHAIN_SWEEP (S = 16, 128, 500; NL = 2, 6, 15; P = 3, 16, 20)
      and FOLD_SWEEP (at both scan_levels; read counts ragged against the
      fold's 32-read blocks); the walk's kernels (walk_fold, tiny_dp,
-     walk_scan) bit-equal to their plain versions over WALK_SWEEP (every
-     event kind, I32MAX bounds, bands up to w = 62, the main path's pool
-     shapes, tiny-DP pools where no row, half and every row falls back),
+     walk_scan, walk_init, walk_pool, walk_commit) bit-equal to their
+     plain versions over WALK_SWEEP (every event kind, I32MAX bounds,
+     bands up to w = 62, the main path's pool shapes, tiny-DP pools where
+     no row, half and every row falls back; lane tables past WPP lanes and
+     tid lists past STW, pools that overflow, dedup ties across slots,
+     windows off the genome and across the reads' rows, counts past EW),
      eagerly and replayed from a CUDA graph; the chain stage's ends
      (chain_cells in both seg_compact forms, extract_kbest) bit-equal to
      their plain versions over END_SWEEP (chr21's main shapes, one
@@ -53,11 +56,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      on the card as one CUDA graph, captured at warm-up and replayed per
      batch; deferred reads replayed on the host) on the same reads: equal
      to native, with the xdrop, one_side, edit_end, chain_cells, chain_dp,
-     extract_kbest, mr_pair_fold, walk_fold, walk_scan and tiny_dp kernels
-     each launched on that run, counted per replay (replays times the
-     launches the capture recorded; chain_cells, chain_dp and
-     extract_kbest once, mr_pair_fold twice, walk_fold and walk_scan four
-     times, tiny_dp five times per replay); reported:
+     extract_kbest, mr_pair_fold, walk_fold, walk_scan, tiny_dp,
+     walk_init, walk_pool and walk_commit kernels each launched on that
+     run, counted per replay (replays times the launches the capture
+     recorded; chain_cells, chain_dp, extract_kbest and walk_init once,
+     mr_pair_fold twice, walk_fold, walk_scan, walk_pool and walk_commit
+     four times, tiny_dp five times per replay); reported:
      pairs/s, reads deferred
      and their causes, and the device-busy share and per-stage device
      time (the cm.* spans) of one torch.profiler run of a map of the
@@ -73,7 +77,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      each bit-equal to its plain version there and timed, with its bound
      (the chain ends', the chain DP's, the fold's and the walk kernels'
      inputs too; each
-     walk kernel beside an empty kernel on its grid, the [launch-floor]
+     walk kernel beside empty kernels on its grids, the [launch-floor]
      line, and with the fallback rows of tiny_dp's pools and the fold's
      live lanes per family; the extraction's rows by event count and by
      the rank path they take, extract_paths);
@@ -151,8 +155,8 @@ in phase 8, each counted from the end of its warm-up; launches_contigs in phase 
 gpu-full map and stage 2, counted so too;
 launches_mesh in phase 14's world-1 steps; ms, plain_ms, bound_ms at
 B = 1024 for the DP kernels, at the main path's recorded inputs for
-chain_cells, chain_dp, extract_kbest, mr_pair_fold and the walk's kernels
-(tiny_dp's at its largest
+chain_cells, chain_dp, extract_kbest, mr_pair_fold and the walk's six
+kernels (tiny_dp's at its largest
 pool, phase 1's 4,096 rows); main_ms per launch at the row counts of the
 main path; chain_dp's buckets at CHAIN_BUCKETS).
 """
@@ -170,22 +174,27 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SEED_GENOME, SEED_READS = 20260817, 20260818
 KERNEL_SOURCE = "circminer_tpu_torch/csrc/align_kernels.cu"
 WALK_SOURCE = "circminer_tpu_torch/csrc/walk.cu"
+WAVE_SOURCE = "circminer_tpu_torch/csrc/walk_wave.cu"
 SOURCES = {"chain_dp": "circminer_tpu_torch/csrc/chain_dp.cu",
            "mr_pair_fold": "circminer_tpu_torch/csrc/mr_fold.cu",
            "walk_fold": WALK_SOURCE, "tiny_dp": WALK_SOURCE,
-           "walk_scan": WALK_SOURCE,
+           "walk_scan": WALK_SOURCE, "walk_init": WAVE_SOURCE,
+           "walk_pool": WAVE_SOURCE, "walk_commit": WAVE_SOURCE,
            "chain_cells": "circminer_tpu_torch/csrc/chain_cells.cu",
            "extract_kbest": "circminer_tpu_torch/csrc/extract_kbest.cu"}
 WALK_KERNELS = ("walk_fold", "tiny_dp", "walk_scan")
+# the walk's lane set-up and wave body (csrc/walk_wave.cu)
+WAVE_KERNELS = ("walk_init", "walk_pool", "walk_commit")
 # the chain stage's two ends: the prelude's cells and the k-best extraction
 END_KERNELS = ("chain_cells", "extract_kbest")
 DP_KERNELS = ("xdrop", "edit_sc", "edit_end", "one_side")
 # in the gpu-full map
 FULL_KERNELS = ("xdrop", "one_side", "edit_end", "chain_dp", "mr_pair_fold",
-                *WALK_KERNELS, *END_KERNELS)
+                *WALK_KERNELS, *WAVE_KERNELS, *END_KERNELS)
 # launches of one gpu-full step (and so of one replay)
 PER_STEP = {"chain_dp": 1, "mr_pair_fold": 2, "walk_fold": 4, "walk_scan": 4,
-            "tiny_dp": 5, "chain_cells": 1, "extract_kbest": 1}
+            "tiny_dp": 5, "chain_cells": 1, "extract_kbest": 1,
+            "walk_init": 1, "walk_pool": 4, "walk_commit": 4}
 # the keys of every line of the reference bench (bench.py:329-343)
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "executor",
               "backend", "n_pairs", "genome_len", "events", "true_events",
@@ -203,6 +212,13 @@ REPLACES = {
     "tiny_dp": "circminer_tpu/ops/device_walk.py:65",
     # scan_step, run by fori_loop(0, KSCAN) at :366
     "walk_scan": "circminer_tpu/ops/device_walk.py:247",
+    # walk_waves' lane set-up (:163-235): _compact, the lane gathers, the
+    # common-transcript pack
+    "walk_init": "circminer_tpu/ops/device_walk.py:163",
+    # wave_body's dedup, _compacts and window gathers (:374-452)
+    "walk_pool": "circminer_tpu/ops/device_walk.py:374",
+    # wave_body's scatter-back, overflow, emit and middle commit (:420-520)
+    "walk_commit": "circminer_tpu/ops/device_walk.py:420",
     # _chain_prelude's cells: the bisect at :380, the seg_compact forms :407
     "chain_cells": "circminer_tpu/ops/chain.py:355",
     # extract_kbest_device_staged: lax.sort :84, pick_body :144 / :158
@@ -847,6 +863,138 @@ def walk_scan_inputs(rng, STW, WPP, *, NIV=200, NS=300, KSCAN=12):
             dict(KSCAN=KSCAN, G=G))
 
 
+def walk_anno(rng, NIV, NT, ST, *, G=None, NS=None):
+    """A walk annotation (numpy): NIV ordered intervals, a genome of G
+    bases ending inside the last quarter (references out of bounds on the
+    right), NT transcripts over runs of intervals (some starting before
+    interval 0 or running past the table), their t2s states (0, 1, 2) and
+    per interval ST tid slots from a small alphabet with duplicates, -1
+    pads, tids past NT and lists of more than 8 shared tids."""
+    import numpy as np
+
+    def r(lo, hi, shape):
+        return rng.integers(lo, hi, size=shape).astype(np.int32)
+    ln = r(1, 40, NIV)
+    spos = np.cumsum(ln + r(0, 30, NIV)).astype(np.int32)
+    epos = (spos + ln - 1).astype(np.int32)
+    G = int(epos[3 * NIV // 4]) if G is None else G
+    tlen = r(1, 12, NT)
+    t2s_off = np.concatenate([[0], np.cumsum(tlen)]).astype(np.int32)
+    NS = int(t2s_off[-1]) if NS is None else NS
+    t2s = rng.choice(3, NS, p=[0.2, 0.4, 0.4]).astype(np.uint8)
+    trans_start = r(-2, NIV, NT)
+    tids = np.where(rng.random((NIV, ST)) < 0.8, r(0, min(NT + 2, 14),
+                                                    (NIV, ST)), -1)
+    # a tenth of the intervals list one run of 10 tids (> STW in common)
+    wide = rng.random(NIV) < 0.1
+    tids[wide, :min(ST, 10)] = np.arange(min(ST, 10))
+    return dict(iv_spos=spos, iv_epos=epos, iv_tids=tids.astype(np.int32),
+                trans_start=trans_start, t2s_off=t2s_off, t2s_state=t2s,
+                G=G)
+
+
+def walk_init_inputs(rng, N, WPP, *, share, NIV=60, NT=30, ST=16, EW=4,
+                     band=3, left4=(True, True, False, False)):
+    """Adversarial inputs of the walk's lane set-up (``walk_init``, numpy):
+    a share of the [4, N] slots active (past WPP lanes at a high share),
+    lane tables with positions and anchor intervals out of range on both
+    sides, pair anchors (fiv, riv) off the table, and walk_anno's tid
+    lists (shared tids past STW, duplicates, pads, tids past NT)."""
+    import numpy as np
+
+    def r(lo, hi, shape):
+        return rng.integers(lo, hi, size=shape).astype(np.int32)
+    an = walk_anno(rng, NIV, NT, ST)
+    act4 = rng.random((4, N)) < share
+    tab = [r(-5, an["G"] + 10, (4, N)), r(-2, 120, (4, N)),
+           r(-2, NIV + 2, (4, N)), r(-1, 50, (4, N)), r(-3, 60, (4, N))]
+    fiv, riv = r(-2, NIV + 2, N), r(-2, NIV + 2, N)
+    # a third of the pairs anchor both mates in one interval (every tid
+    # shared)
+    same = rng.random(N) < 0.3
+    riv = np.where(same, fiv, riv).astype(np.int32)
+    return ((act4, *tab, fiv, riv, an["iv_epos"], an["iv_tids"],
+             an["trans_start"], an["t2s_off"]),
+            dict(left4=left4, band=band, EW=EW, WPP=WPP))
+
+
+def walk_state_inputs(rng, STW, WPP, *, G, R=40, L=150):
+    """A scan state after a wave's scan (numpy): every status, pending
+    geometry from narrow windows and slot 0's copied into later slots for
+    a third of the (slot, lane) pairs (dedup ties across slots), lengths
+    from -3 to past the windows' I - 1, references at and past the
+    genome's ends, query windows at and past the reads' row ends; the lane
+    constants (is_left, qlen, pos) and the pools' rows (row, qs0); R reads
+    of L bases and a genome of G bases (codes 0-4)."""
+    import numpy as np
+
+    def r(lo, hi, shape):
+        return rng.integers(lo, hi, size=shape).astype(np.int32)
+    shp = (STW, WPP)
+    stat = rng.choice(6, shp, p=[0.1, 0.3, 0.1, 0.3, 0.1, 0.1])
+    xpos = np.where(rng.random(shp) < 0.5, r(-3, 40, shp),
+                    r(G - 40, G + 3, shp))
+    pend = [xpos, r(-3, 140, shp), r(0, 12, shp), r(-3, 140, shp)]
+    pend[1] = np.where(rng.random(shp) < 0.5, pend[1] % 8, pend[1])
+    pend[3] = np.where(rng.random(shp) < 0.5, pend[3] % 8, pend[3])
+    tie = rng.random(shp) < 0.35
+    for f in pend:
+        f[:] = np.where(tie, f[:1], f)
+    qlen = r(0, 135, WPP)
+    ws = np.stack([r(-2, 60, shp), r(-3, G + 3, shp), r(-3, 40, shp),
+                   r(0, 40, shp), r(0, 2, shp), stat.astype(np.int32),
+                   r(-2, 62, shp), pend[0], pend[1], pend[2], pend[3],
+                   r(-5, 140, shp)]).astype(np.int32)
+    lane = np.stack([r(0, 2, WPP), qlen, r(-5, G + 5, WPP)])
+    prow = np.stack([r(-1, R + 1, WPP), r(-3, L, WPP)])
+    seqsf = rng.integers(0, 5, R * L).astype(np.int8)
+    genome = rng.integers(0, 5, G).astype(np.int8)
+    return ws, lane.astype(np.int32), prow.astype(np.int32), seqsf, genome
+
+
+def walk_pool_inputs(rng, STW, WPP, *, MIDP, ENDP, band=3, G=3000, L=150):
+    """Adversarial inputs of a wave's pools (``walk_pool``, numpy): a
+    walk_state_inputs state; MIDP / ENDP below the leaders to overflow,
+    or above them to leave dead rows."""
+    ws, lane, prow, seqsf, genome = walk_state_inputs(rng, STW, WPP, G=G,
+                                                      L=L)
+    return ((ws, lane, prow, seqsf, genome),
+            dict(L=L, band=band, MIDP=MIDP, ENDP=ENDP))
+
+
+def walk_commit_inputs(rng, STW, WPP, *, MIDP, ENDP, EW=4, NIV=60, band=3,
+                       G=3000):
+    """Adversarial inputs of a wave's commit (``walk_commit``): a
+    walk_state_inputs state and its pools' maps and rows (the plain
+    ``walk_pool``: leaders, followers, overflowed leaders), the middle
+    DPs' (ed, indel) and the end DPs' (score, on_s, on_t) from narrow
+    windows and int32's ends (scores below 0 and floor divisions of
+    negatives), pending intervals off the table, prefilled events and
+    counts from -1 past EW (numpy, but the maps)."""
+    import numpy as np
+    import torch
+    from circminer_tpu_torch.ops import device_walk as dw
+
+    def r(lo, hi, shape):
+        return rng.integers(lo, hi, size=shape).astype(np.int32)
+    (ws, lane, prow, seqsf, genome), kw = walk_pool_inputs(
+        rng, STW, WPP, MIDP=MIDP, ENDP=ENDP, band=band, G=G)
+    pool = dw._walk_pool_plain(*(torch.from_numpy(a) for a in (
+        ws, lane, prow, seqsf, genome)), **kw, I=128)
+    an = walk_anno(rng, NIV, 8, 4)
+    md = np.where(rng.random((MIDP, 2)) < 0.1, rng.choice(
+        [I32MAX, -I32MAX - 1, 10 ** 7], (MIDP, 2)), r(-4, 9, (MIDP, 2)))
+    xres = np.stack([np.where(rng.random(ENDP) < 0.1, rng.choice(
+        [I32MAX, -I32MAX - 1], ENDP), r(-30, 60, ENDP)),
+        r(-2, 130, ENDP), r(-2, 130, ENDP)], axis=1)
+    events = r(-9, 10, (STW, EW, 7, WPP))
+    nev = r(-1, EW + 2, (STW, WPP))
+    return ((ws, pool.maps.numpy(), md.astype(np.int32),
+             xres.astype(np.int32), pool.e_rows.numpy(), lane,
+             an["iv_spos"], an["iv_epos"], events, nev),
+            dict(mat=1, mis=-3, band=band, max_ed=2 + band // 2, max_sc=7))
+
+
 def chain_cells_inputs(rng, B, NL, S, *, n_iv=40, P=4, k=5, max_ed=2):
     """Adversarial inputs of the chain prelude's cells (``chain_cells``,
     numpy): ascending interval starts with gaps, adjacent intervals and
@@ -974,8 +1122,10 @@ FOLD_STEP_OPS = 100
 
 def tensor_kernel_calls(name, args, kw):
     """(kernel wrapper call, plain version call) of a ``launch_tensors``
-    kernel (chain_dp, mr_pair_fold, one of WALK_KERNELS or END_KERNELS) on
-    these arguments, each returning a tuple of tensors."""
+    kernel (chain_dp, mr_pair_fold, one of WALK_KERNELS, WAVE_KERNELS or
+    END_KERNELS) on these arguments, each returning a tuple of tensors
+    (walk_commit's: the events and counts it updates in place on copies of
+    its inputs', then the new state)."""
     from circminer_tpu_torch.ops import chain_device as cd
     from circminer_tpu_torch.ops import device_finish as fin
     from circminer_tpu_torch.ops import device_full as df
@@ -987,10 +1137,22 @@ def tensor_kernel_calls(name, args, kw):
            "mr_pair_fold": (df.mr_pair_fold, df._mr_pair_fold_plain),
            "walk_fold": (dw.walk_fold_lanes, dw._walk_fold_plain),
            "tiny_dp": (dw.tiny_dp, dw._tiny_dp_plain),
-           "walk_scan": (dw.walk_scan, dw._walk_scan_plain)}
+           "walk_scan": (dw.walk_scan, dw._walk_scan_plain),
+           "walk_init": (dw.walk_init, dw._walk_init_plain),
+           "walk_pool": (dw.walk_pool, dw._walk_pool_plain),
+           "walk_commit": (dw.walk_commit, dw._walk_commit_plain)}
     kern, plain = fns[name]
     if name in WALK_KERNELS:                   # one tensor out
         return (lambda: (kern(*args, **kw),), lambda: (plain(*args, **kw),))
+    if name == "walk_commit":
+        def commit(fn):
+            ev, nev = args[8].clone(), args[9].clone()
+            ws = fn(*args[:8], ev, nev, **kw)
+            return ev, nev, ws
+        return lambda: commit(kern), lambda: commit(plain)
+    if name in WAVE_KERNELS:                   # a named tuple out
+        return (lambda: tuple(kern(*args, **kw)),
+                lambda: tuple(plain(*args, **kw)))
     return lambda: kern(*args, **kw), lambda: plain(*args, **kw)
 
 
@@ -1006,6 +1168,7 @@ def hold_outputs(name, kern, plain, tag=""):
               f"{w.dtype} {tuple(w.shape)}")
         if not torch.equal(g, w):
             err = int((g.long() - w.long()).abs().max())
+            g, w = g.reshape(-1, *g.shape[1:]), w.reshape(-1, *w.shape[1:])
             bad = (g != w).reshape(g.shape[0], -1).any(1).nonzero()[:3, 0]
             raise SmokeFailure(
                 f"{name}{tag} output {i} differs from its plain version "
@@ -1054,7 +1217,12 @@ def phase_chain_fold(device, seed=11):
 # 4,096 and 8,192) with no row, half the rows and every row falling back,
 # and over bands up to w = 62 (TM = 126: the row in shared memory);
 # walk_scan (STW, WPP, KSCAN) at the main path's 8 x 6,144 and ragged
-# shapes
+# shapes; walk_init (N, WPP, active share, ST, left4) at the main path's
+# 65,536 pair slots into 6,144 lanes below and past WPP, ragged, ST below
+# STW, no active slot; walk_pool (STW, WPP, MIDP, ENDP, band) at the main
+# path's pools, pools that overflow, dead rows past every leader, one
+# slot, a wide band; walk_commit (STW, WPP, MIDP, ENDP, EW, band) the same
+# and EW 1 and 7
 WALK_SWEEP = {
     "walk_fold": ((4096, 8, 6144, 0, True), (4096, 8, 6144, 1, True),
                   (4096, 8, 6144, 2, False), (4096, 8, 6144, 3, False),
@@ -1068,7 +1236,21 @@ WALK_SWEEP = {
                 (257, 31, True, 0.5), (129, 62, True, 1.0)),
     "walk_scan": ((8, 6144, 12), (8, 6144, 1), (3, 33, 30), (1, 1, 12),
                   (8, 129, 24)),
+    "walk_init": ((65536, 6144, 0.02, 16, 0), (65536, 6144, 0.1, 16, 0),
+                  (64, 40, 0.5, 16, 1), (200, 512, 0.9, 16, 2),
+                  (33, 7, 0.3, 5, 0), (16, 100, 0.0, 3, 3),
+                  (64, 40, 0.5, 20, 1)),
+    "walk_pool": ((8, 6144, 512, 1024, 3), (8, 6144, 64, 96, 3),
+                  (8, 40, 512, 300, 3), (3, 50, 8, 4, 0), (1, 33, 5, 70, 1),
+                  (8, 300, 600, 10, 14)),
+    "walk_commit": ((8, 6144, 512, 1024, 4, 3), (8, 6144, 64, 96, 4, 3),
+                    (8, 60, 16, 16, 4, 3), (3, 50, 8, 4, 1, 0),
+                    (8, 200, 64, 128, 7, 5), (2, 33, 5, 70, 2, 1)),
 }
+# walk_init's left4 options (by WALK_SWEEP index): the main path's and
+# others
+LEFT4 = ((True, True, False, False), (False, True, True, False),
+         (True, False, True, False), (False, False, False, True))
 
 
 def walk_case(name, spec, device, seed):
@@ -1083,6 +1265,18 @@ def walk_case(name, spec, device, seed):
     elif name == "tiny_dp":
         B, w, end, share = spec
         arrs, kw = tiny_dp_inputs(rng, B, w, end=end, share=share)
+    elif name == "walk_init":
+        N, WPP, share, ST, left = spec
+        arrs, kw = walk_init_inputs(rng, N, WPP, share=share, ST=ST,
+                                    left4=LEFT4[left])
+    elif name == "walk_pool":
+        STW, WPP, MIDP, ENDP, band = spec
+        arrs, kw = walk_pool_inputs(rng, STW, WPP, MIDP=MIDP, ENDP=ENDP,
+                                    band=band)
+    elif name == "walk_commit":
+        STW, WPP, MIDP, ENDP, EW, band = spec
+        arrs, kw = walk_commit_inputs(rng, STW, WPP, MIDP=MIDP, ENDP=ENDP,
+                                      EW=EW, band=band)
     else:
         STW, WPP, KSCAN = spec
         arrs, kw = walk_scan_inputs(rng, STW, WPP, KSCAN=KSCAN)
@@ -1091,10 +1285,10 @@ def walk_case(name, spec, device, seed):
 
 
 def phase_walk(device, seed=17):
-    """Phase 2 for the walk's kernels (walk_fold, tiny_dp, walk_scan): each
-    bit-equal to its plain version on the card over WALK_SWEEP, once
-    eagerly and once replayed from a captured CUDA graph (its outputs
-    overwritten before the replay)."""
+    """Phase 2 for the walk's kernels (walk_fold, tiny_dp, walk_scan,
+    walk_init, walk_pool, walk_commit): each bit-equal to its plain version
+    on the card over WALK_SWEEP, once eagerly and once replayed from a
+    captured CUDA graph (its outputs overwritten before the replay)."""
     import torch
     t0 = time.perf_counter()
     n = 0
@@ -1111,11 +1305,13 @@ def phase_walk(device, seed=17):
             graph.replay()
             hold_outputs(name, lambda: out, plain, f" ({spec}, replayed)")
             n += 1
-    log(f"[kernels] walk_fold, tiny_dp and walk_scan bit-equal to plain, "
-        f"eagerly and replayed from a CUDA graph, over {n} cases "
+    log(f"[kernels] walk_fold, tiny_dp, walk_scan, walk_init, walk_pool and "
+        f"walk_commit bit-equal to plain, eagerly and replayed from a CUDA "
+        f"graph, over {n} cases "
         f"{ {k: v for k, v in WALK_SWEEP.items()} } "
         f"({time.perf_counter() - t0:.1f} s; adversarial inputs: "
-        f"walk_fold_inputs, tiny_dp_inputs, walk_scan_inputs)")
+        f"walk_fold_inputs, tiny_dp_inputs, walk_scan_inputs, "
+        f"walk_init_inputs, walk_pool_inputs, walk_commit_inputs)")
 
 
 # the chain ends' adversarial sweep: chain_cells (rows, NL, S,
@@ -1352,6 +1548,116 @@ def walk_work(name, args, kw):
     return nbytes, steps * SCAN_STEP_OPS
 
 
+# floors of the wave kernels' int32 operations: per flag of a compaction
+# (its test, count and rank), per compare of a lane's common-tid membership
+# (ST x ST a lane) and per word a lane's set-up writes; per (slot, lane)
+# the status tests (walk_pool's two pool tests, walk_commit's kind tests);
+# per compare of the pools' dedup (a pending slot against each earlier
+# pending slot of its lane in its pool) and per window byte; per pending
+# (slot, lane) of the commit (the _drop_wrap sums and selects, the event
+# and the commit's updates)
+WAVE_FLAG_OPS = 4
+WAVE_MEMB_OPS = 2
+WAVE_TEST_OPS = 4
+WAVE_DEDUP_OPS = 4
+WAVE_BYTE_OPS = 4
+WAVE_COMMIT_OPS = 40
+
+
+def wave_work(name, args, kw):
+    """(bytes, int32 ops) that a wave kernel needs on these inputs: each
+    input word that its function reads counted once, each output written
+    once (the plain version's outputs give the sizes and the sets that
+    depend on the data).  walk_init: the [4N] flags; of each distinct flat
+    slot a lane gathers, its five table words; of each distinct pair, its
+    two anchors; of each distinct anchor interval, its tid list; of each
+    distinct anchor interval of a lane, its end; of each distinct (tstart,
+    toff, tlen) a slot takes, three transcript words.  walk_pool: every
+    slot's status; the three geometry fields of each slot in a pool (a
+    row's leader reads its own again) and of flat S - 1 where dead rows
+    gather it; the four lane words of each distinct lane a pool row
+    gathers; the window bytes inside each distinct gathered row's
+    lengths.  walk_commit: the state; the MID map where the status pends
+    a middle or trailing DP, the END map where it pends an end DP; the
+    side of each lane that reads an end DP or commits a middle one; of
+    each distinct pool row read, its (ed, indel), or its (score, on_s,
+    on_t) and need; of each distinct interval a right middle commit
+    reads, its start and end; the count, the new count and the event of
+    each slot that emits."""
+    import torch
+    from circminer_tpu_torch.ops import device_walk as dw
+
+    def distinct(x):
+        return int(torch.unique(x).numel())
+
+    def out_bytes(tensors):
+        return sum(x.numel() * x.element_size() for x in tensors)
+    if name == "walk_init":
+        act4, aiv4, fiv, riv, iv_tids = (args[0], args[3], args[6],
+                                         args[7], args[9])
+        N, (NIV, ST) = fiv.shape[0], iv_tids.shape
+        out = dw._walk_init_plain(*args, **kw)
+        flat = torch.unique(out.inv.long())
+        pairs = torch.unique(flat % N)
+        ivs = distinct(torch.cat([fiv[pairs], riv[pairs]]).clamp(0, NIV - 1))
+        aivs = distinct(aiv4.reshape(-1)[flat].clamp(0, NIV - 1))
+        trans = torch.unique(out.slot.reshape(len(dw.SLOT_KEYS), -1),
+                             dim=1).shape[1]
+        nbytes = act4.numel() + flat.numel() * 5 * 4 \
+            + pairs.numel() * 2 * 4 + ivs * ST * 4 + aivs * 4 \
+            + trans * 3 * 4 + out_bytes(out)
+        ops = act4.numel() * WAVE_FLAG_OPS \
+            + int(out.n_act) * ST * ST * WAVE_MEMB_OPS \
+            + out.nev.numel() * (len(dw.WS_KEYS) + 10)
+        return nbytes, ops
+    ws = args[0]
+    _, STW_, WPP = ws.shape
+    S = STW_ * WPP
+    stat = ws[dw.WS_KEYS.index("stat")]
+    m_in = (stat == dw.WK_PMID) | (stat == dw.WK_PTRAIL)
+    e_in = stat == dw.WK_PEND
+    if name == "walk_pool":
+        out = dw._walk_pool_plain(*args, **kw)
+        W = out.m_win.shape[2]
+        inside, flats, dead = 0, [], False
+        for rows, n in ((out.m_rows, out.n[0]), (out.e_rows, out.n[1])):
+            P = rows.shape[1]
+            # the live rows' leaders, and row n once for the dead rows
+            keep = torch.arange(P, device=ws.device) <= n
+            inside += int((torch.clamp(rows[:2], 0, W) * keep).sum())
+            flats.append(rows[2][keep])
+            dead |= int(n) < P
+        pending = (m_in | e_in).reshape(-1)
+        geometry = int(pending.sum()) + int(dead and not bool(pending[-1]))
+        lanes = distinct(torch.cat(flats) % WPP)
+        nbytes = S * 4 + geometry * 3 * 4 + lanes * 4 * 4 + inside \
+            + out_bytes(out)
+        earlier = 0
+        for m in (m_in.int(), e_in.int()):
+            earlier += int(((torch.cumsum(m, 0) - m) * m).sum())
+        ops = S * WAVE_TEST_OPS + earlier * WAVE_DEDUP_OPS \
+            + (out.m_win.numel() + out.e_win.numel()) * WAVE_BYTE_OPS
+        return nbytes, ops
+    maps, lane, iv_spos = args[1], args[5], args[6]
+    m_map, e_map = maps.unbind(0)
+    pendnd = stat == dw.WK_PENDND
+    mid = (stat == dw.WK_PMID) & (m_map != dw.MAP_OVER)
+    emit = (m_in & (m_map != dw.MAP_OVER)) | (e_in & (e_map != dw.MAP_OVER)) \
+        | pendnd
+    left = lane[dw.LANE_KEYS.index("is_left")] != 0
+    sided = int(((e_in & (e_map >= 0)) | mid).any(0).sum())
+    pend_iv = ws[dw.WS_KEYS.index("pend_iv")]
+    ivs = distinct(pend_iv[mid & ~left[None, :]].clamp(
+        0, iv_spos.shape[0] - 1))
+    nbytes = 2 * ws.numel() * 4 + int((m_in | e_in).sum()) * 4 + sided * 4 \
+        + distinct(m_map[m_in & (m_map >= 0)]) * 2 * 4 \
+        + distinct(e_map[e_in & (e_map >= 0)]) * 4 * 4 + ivs * 2 * 4 \
+        + int(emit.sum()) * (dw.EV_NF + 2) * 4
+    ops = S * WAVE_TEST_OPS \
+        + int((m_in | e_in | pendnd).sum()) * WAVE_COMMIT_OPS
+    return nbytes, ops
+
+
 # floors of the chain ends' int32 operations: per cell of chain_cells (its
 # valid bit, the bit lookup, the bounds' sums, minima and selects), per
 # bisect step (the load's compare and the halving) and per segment scanned
@@ -1503,6 +1809,8 @@ def tensor_kernel_bound(name, args, kw):
         nbytes, ops = extract_kbest_work(*args, **kw)
     elif name in WALK_KERNELS:
         nbytes, ops = walk_work(name, args, kw)
+    elif name in WAVE_KERNELS:
+        nbytes, ops = wave_work(name, args, kw)
     else:
         mr, pairs = args[0], args[1]
         B, _, P, F = pairs.shape
@@ -1517,10 +1825,12 @@ def tensor_kernel_bound(name, args, kw):
 def recording_tensor_kernels(store):
     """Wrap the wrappers of the ``launch_tensors`` kernels (chain_cells,
     chain_dp, extract_kbest_device, mr_pair_fold, walk_fold_lanes, tiny_dp,
-    walk_scan) where the step calls them, so that the first inputs of each
-    (kernel, rows) are kept in ``store`` and every call is counted there;
-    returns the function that undoes it.  A walk_fold's rows are its pool
-    lanes, walk_scan's its (slot, lane) pairs."""
+    walk_scan, walk_init, walk_pool, walk_commit) where the step calls
+    them, so that the first inputs of each (kernel, rows) are kept in
+    ``store`` and every call is counted there; returns the function that
+    undoes it.  A walk_fold's and walk_init's rows are its pool lanes,
+    walk_scan's and walk_commit's its (slot, lane) pairs, walk_pool's its
+    two pools' rows."""
     from circminer_tpu_torch.ops import chain_device as cd
     from circminer_tpu_torch.ops import device_finish as fin
     from circminer_tpu_torch.ops import device_full as df
@@ -1530,22 +1840,29 @@ def recording_tensor_kernels(store):
              ("chain_dp", cd, "chain_dp"),
              ("mr_pair_fold", df, "mr_pair_fold"),
              ("walk_fold", dw, "walk_fold_lanes"), ("tiny_dp", dw, "tiny_dp"),
-             ("tiny_dp", df, "tiny_dp"), ("walk_scan", dw, "walk_scan")]
+             ("tiny_dp", df, "tiny_dp"), ("walk_scan", dw, "walk_scan"),
+             ("walk_init", dw, "walk_init"), ("walk_pool", dw, "walk_pool"),
+             ("walk_commit", dw, "walk_commit")]
     saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in sites]
 
-    def rows(name, args):
+    def rows(name, args, kw):
         if name == "walk_fold":
             return args[1].shape[1]
-        if name == "walk_scan":
+        if name in ("walk_scan", "walk_commit"):
             return args[0].shape[1] * args[0].shape[2]
+        if name == "walk_init":
+            return kw["WPP"]
+        if name == "walk_pool":
+            return kw["MIDP"] + kw["ENDP"]
         return args[0].shape[0]
 
     def wrap(name, fn):
         def rec(*args, **kw):
-            key = (name, rows(name, args))
-            if key not in store:
+            key = (name, rows(name, args, kw))
+            if key not in store:        # (the wrapper makes its workspace)
                 store[key] = dict(args=[a.clone() for a in args],
-                                  kw=dict(kw), count=0)
+                                  kw={k: v for k, v in kw.items()
+                                      if k != "tiles"}, count=0)
             store[key]["count"] += 1
             return fn(*args, **kw)
         return rec
@@ -1560,6 +1877,42 @@ def recording_tensor_kernels(store):
 
 # csrc/walk.cu's WalkKernel: the kernel whose grid cm_walk_empty takes
 WALK_EMPTY = {"walk_fold": 0, "tiny_dp": 1, "walk_scan": 2}
+# csrc/walk_wave.cu's WaveKernel: the entry point whose grids cm_wave_empty
+# takes
+WAVE_EMPTY = {"walk_init": 0, "walk_pool": 1, "walk_commit": 2}
+# the device record that times a wave kernel, and whether its other
+# records count too (walk_init and walk_pool launch a compaction before it)
+WAVE_TIMED = {"walk_init": ("walk_init_kernel", True),
+              "walk_pool": ("walk_pool_kernel", True),
+              "walk_commit": ("walk_commit_kernel", False)}
+
+
+def wave_floor_ms(name, args, kw, iters=50):
+    """Device ms of empty kernels launched on the grids that the wave
+    kernel ``name`` takes for these inputs (csrc/walk_wave.cu::
+    cm_wave_empty), summed over its grids: the launch's share of that
+    kernel's time."""
+    import ctypes
+    import torch
+    from circminer_tpu_torch.ops import _ext
+    fn = _ext._load().cm_wave_empty
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    # the compaction's units and the last kernel's rows
+    units, rows = {
+        "walk_init": lambda: (args[6].shape[0], kw["WPP"]),
+        "walk_pool": lambda: (args[0].shape[1] * args[0].shape[2],
+                              kw["MIDP"] + kw["ENDP"]),
+        "walk_commit": lambda: (0, args[0].shape[1] * args[0].shape[2])}[
+            name]()
+    stream = torch.cuda.current_stream().cuda_stream
+    grids = []
+
+    def call():
+        grids.append(fn(WAVE_EMPTY[name], units, rows, stream))
+        check(grids[-1] > 0, f"the empty kernels on {name}'s grids failed "
+              f"to launch")
+    return device_ms(call, "wave_empty_kernel", iters) * grids[0]
 
 
 def walk_floor_ms(name, args, kw, iters=50):
@@ -1619,17 +1972,21 @@ def time_tensor_kernels(store, where, iters=50):
     calls ``where``, bit-equality with the plain version on the recorded
     inputs, its device ms per launch (profiler), the plain version's ms
     (CUDA events) and its bound; for the walk's kernels the launch floor
-    of their grid and what their inputs ask of them (``walk_shares``)."""
+    of their grid and what their inputs ask of them (``walk_shares``); for
+    the wave kernels the floor of their grids (``wave_floor_ms``)."""
     res = {}
     for (name, rows), rec in sorted(store.items()):
         args, kw = rec["args"], rec["kw"]
         kern, plain = tensor_kernel_calls(name, args, kw)
         err = hold_outputs(name, kern, plain, f" ({where}, {rows} rows)")
         bound_ms, bound_by, ops = tensor_kernel_bound(name, args, kw)
+        timed, rest = WAVE_TIMED.get(name, (f"{name}_kernel", False))
         r = dict(rows=rows, launches=rec["count"], max_abs_err=err,
-                 ms=device_ms(kern, f"{name}_kernel", iters),
+                 ms=device_ms(kern, timed, iters, rest=rest),
                  plain_ms=cuda_ms(plain, 3), bound_ms=bound_ms,
                  bound_by=bound_by, ops=ops)
+        if name in WAVE_KERNELS:
+            r.update(floor_ms=wave_floor_ms(name, args, kw))
         if name in WALK_KERNELS:
             shares = walk_shares(name, args)
             r.update(floor_ms=walk_floor_ms(name, args, kw), **shares)
@@ -1645,7 +2002,8 @@ def time_tensor_kernels(store, where, iters=50):
             f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms; bound "
             f"{bound_ms:.6f} ms ({bound_by}, {ops} int32 ops)")
     floors = {f"{name} at {r['rows']}": (r["ms"], r["floor_ms"])
-              for name in WALK_KERNELS for r in res.get(name, ())}
+              for name in (*WALK_KERNELS, *WAVE_KERNELS)
+              for r in res.get(name, ())}
     log(f"[launch-floor] {where}, ms per launch of each walk kernel beside "
         f"an empty kernel on its grid (kernel, empty): {floors}")
     return res
@@ -1920,7 +2278,19 @@ AB_END = {"chain_cells": ((16384, 6, 16, dict(n_iv=2000, P=16)),
 AB_WALK = {"walk_fold": ((4096, 8, 6144, 0, True),),
            "tiny_dp": tuple((B, 3, end, share) for B, end in (
                (512, True), (4096, False)) for share in (0.0, 0.5, 1.0)),
-           "walk_scan": ((8, 6144, 12),)}
+           "walk_scan": ((8, 6144, 12),),
+           "walk_init": ((65536, 6144, 0.02, 16, 0),),
+           "walk_pool": ((8, 6144, 512, 1024, 3),),
+           "walk_commit": ((8, 6144, 512, 1024, 4, 3),)}
+# the outputs of each wave kernel (before walk_init's and walk_pool's
+# workspace of tile counts), and those it updates in place
+WAVE_OUTS = {"walk_init": ("inv", "n_act", "over", "act", "p_live",
+                           "over_tid", "ws", "slot", "lane", "prow",
+                           "events", "nev"),
+             "walk_pool": ("m_win", "m_rows", "m_tiny", "e_win", "e_rows",
+                           "n", "maps"),
+             "walk_commit": ("events", "nev", "ws_out")}
+IN_PLACE = ("events", "nev")
 AB_ITERS = {"chain_dp": 20, "mr_pair_fold": 50, "chain_cells": 50,
             "extract_kbest": 50}
 
@@ -1970,27 +2340,24 @@ def ab_cases(names, w=3, seed=19):
         [rec] = chr21_step_inputs("chain_dp")
         yield chain_case(f"chr21 step, b={rec['args'][0].shape[0]}",
                          rec["args"], rec["kw"])
-    for name in (*WALK_KERNELS, *END_KERNELS):
+    for name in (*WALK_KERNELS, *WAVE_KERNELS, *END_KERNELS):
         if name not in names:
             continue
         spec = _ext.KERNELS[name]
-        case_of, specs = ((walk_case, AB_WALK[name]) if name in WALK_KERNELS
-                          else (end_case, AB_END[name]))
+        case_of, specs = ((end_case, AB_END[name]) if name in END_KERNELS
+                          else (walk_case, AB_WALK[name]))
         cases = [(str(case), *case_of(name, case, torch.device("cuda"),
                                       seed + k))
                  for k, case in enumerate(specs)]
         cases += [(f"chr21 step, {rec['rows']} rows", rec["args"],
                    rec["kw"]) for rec in chr21_step_inputs(name)]
-        # the outputs: a walk kernel's one, the chain ends' six (chain_cells'
-        # posf is its input)
-        n_out = 1 if name in WALK_KERNELS else 6
+        # the outputs: a walk kernel's one, a wave kernel's (walk_commit's
+        # events and counts in place, then its state), the chain ends' six
+        # (chain_cells' posf is its input)
+        out_names = WAVE_OUTS.get(name) or spec.tensors[
+            -(1 if name in WALK_KERNELS else 6):]
         for tag, args, kw in cases:
-            kern, plain = tensor_kernel_calls(name, args, kw)
-            got = launch_record(kern)
-            yield (name, tag,
-                   dict(zip(spec.tensors, got["args"]),
-                        **dict(zip(spec.statics, got["statics"]))),
-                   spec.tensors[-n_out:], plain()[-n_out:])
+            yield (name, tag, *ab_values(name, args, kw, out_names))
     if "mr_pair_fold" in names:
         for B, P in AB_FOLD:
             arrs, kw = fold_inputs(np.random.default_rng(seed), B, P)
@@ -2000,6 +2367,39 @@ def ab_cases(names, w=3, seed=19):
                    dict(zip(_ext.KERNELS["mr_pair_fold"].tensors, args),
                         B=B, P=P, **kw),
                    ("mr_out", "aux"), df._mr_pair_fold_plain(*args, **kw))
+
+
+def ab_values(name, args, kw, out_names):
+    """({parameter name: tensor or int} of the wrapper's own launch of
+    ``launch_tensors`` kernel ``name`` on these arguments, ``out_names``,
+    the plain version's outputs of those names)."""
+    from circminer_tpu_torch.ops import _ext
+    spec = _ext.KERNELS[name]
+    kern, plain = tensor_kernel_calls(name, args, kw)
+    got = launch_record(kern)
+    vals = dict(zip(spec.tensors, got["args"]),
+                **dict(zip(spec.statics, got["statics"])))
+    if name == "walk_commit":         # the counts and events it was given
+        vals.update(events=args[8], nev=args[9])
+    return vals, out_names, plain()[-len(out_names):]
+
+
+def ab_buffers(name, vals, outs):
+    """The buffers, by parameter name, that ``phase_ab`` hands a source's
+    kernel ``name``: ``vals`` (``ab_values``) with the fresh outputs
+    ``outs`` in place of the wrapper's.  A ctypes call checks no buffer,
+    so each output must have the shape and dtype of the wrapper's buffer
+    of its name, or SmokeFailure (an output paired with another's name,
+    or sized for other shapes, would run the kernel past its buffers)."""
+    import torch
+    for o, x in outs.items():
+        ref = vals.get(o)
+        if torch.is_tensor(ref):
+            check(x.shape == ref.shape and x.dtype == ref.dtype,
+                  f"{name}: the output {o} given to the source is {x.dtype} "
+                  f"{tuple(x.shape)}, its wrapper's {ref.dtype} "
+                  f"{tuple(ref.shape)}")
+    return dict(vals, **outs)
 
 
 def launch_record(call):
@@ -2103,9 +2503,12 @@ def phase_ab(sources):
         have = [src for src in sources if sym in params[src]]
         for turn in (have, have[::-1]):
             for src in turn:
-                outs = {o: torch.zeros_like(x)     # walk_fold writes its slots
-                        for o, x in zip(out_names, want)}
-                got = dict(vals, **outs)
+                # walk_fold writes its slots; walk_commit updates the
+                # events and counts it is given
+                outs = {o: vals[o].clone()
+                        if name == "walk_commit" and o in IN_PLACE else
+                        torch.zeros_like(x) for o, x in zip(out_names, want)}
+                got = ab_buffers(name, vals, outs)
                 args = [ctypes.c_void_p(v.data_ptr()) if torch.is_tensor(v)
                         else ctypes.c_int(v)
                         for v in (got[q] for q in params[src][sym][:-1])]
@@ -2124,8 +2527,9 @@ def phase_ab(sources):
                 check(all(torch.equal(outs[o], x)
                           for o, x in zip(out_names, want)),
                       f"{src} {name} differs from its plain version ({tag})")
-                ms = device_ms(call, f"{name}_kernel",
-                               AB_ITERS.get(name, 200), rest=select)
+                timed, rest = WAVE_TIMED.get(name, (f"{name}_kernel", False))
+                ms = device_ms(call, timed, AB_ITERS.get(name, 200),
+                               rest=select or rest)
                 times[src].setdefault(name, {}).setdefault(
                     tag, []).append(ms)
                 log(f"[ab] {os.path.basename(src)} {name} {tag}: "

@@ -73,6 +73,23 @@ KERNELS = {
     "walk_scan": Kernel(
         "cm_walk_scan", ("STW", "WPP", "NIV", "NS", "G", "KSCAN"),
         ("ws", "slot", "lane", "iv_spos", "iv_epos", "t2s_state", "ws_out")),
+    "walk_init": Kernel(
+        "cm_walk_init", ("N", "WPP", "STW", "ST", "NIV", "NT", "EW", "band",
+                         "left_bits"),
+        ("act4", "pos4", "len4", "aiv4", "row4", "qs04", "fiv", "riv",
+         "iv_epos", "iv_tids", "trans_start", "t2s_off", "inv", "n_act",
+         "over", "act", "p_live", "over_tid", "ws", "slot", "lane", "prow",
+         "events", "nev", "tiles")),
+    "walk_pool": Kernel(
+        "cm_walk_pool", ("STW", "WPP", "RL", "G", "L", "band", "MIDP",
+                         "ENDP", "W"),
+        ("ws", "lane", "prow", "seqsf", "genome", "m_win", "m_rows",
+         "m_tiny", "e_win", "e_rows", "n", "maps", "tiles")),
+    "walk_commit": Kernel(
+        "cm_walk_commit", ("STW", "WPP", "EW", "MIDP", "ENDP", "NIV", "mat",
+                           "mis", "band", "max_ed", "max_sc"),
+        ("ws", "maps", "md", "xres", "e_rows", "lane", "iv_spos", "iv_epos",
+         "events", "nev", "ws_out")),
     "chain_cells": Kernel(
         "cm_chain_cells", ("B", "NL", "S", "n_nb", "n_iv", "P", "seg_pad",
                            "k", "max_ed"),

@@ -21,11 +21,13 @@ device form runs every walk of the fused step at once:
 * **events**: a lane emits at most one best-update event per wave; the fold
   replays them in (tid, event) order, the host's sequential best fold.
 
-The middle DPs run on the ``edit_end`` kernel (``_end_dp_pool``, with the
-``tiny_dp`` kernel for the fallback shapes) and the end DPs on the
-``xdrop`` kernel; each wave's interval scan is the ``walk_scan`` kernel and
-each family's fold the ``walk_fold`` kernel (csrc/walk.cu).  On CPU
-tensors, their plain versions.
+The walk's lanes are set up by the ``walk_init`` kernels; each wave's
+interval scan is the ``walk_scan`` kernel, its two deduplicated DP pools
+and their windows the ``walk_pool`` kernels, its middle DPs the
+``edit_end`` kernel (with the ``tiny_dp`` kernel on the pool's fallback
+rows), its end DPs the ``xdrop`` kernel, and its commit the
+``walk_commit`` kernel (csrc/walk.cu, csrc/walk_wave.cu); each family's
+fold is the ``walk_fold`` kernel.  On CPU tensors, their plain versions.
 Budget overflows (more than EW DPs per lane, scans past EW*KSCAN intervals,
 exhausted pools, more than STW = 8 common transcripts) raise the read's
 DEF_EXTWALK bit, and the read replays on the host: results are exact or
@@ -35,11 +37,13 @@ the reference does.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _ext
 from .align_device import edit_end_rows
-from .pallas_align import POS, xdrop_batch
+from .pallas_align import POS, xdrop_rows
 
 _i32 = torch.int32
 
@@ -177,22 +181,79 @@ def _tiny_dp_plain(s, t, n, m, tiny, banded, *, NM, MM, w=0, max_ed=0, end):
 
 def _end_dp_pool(s, t, n, m, *, w, max_ed, I):
     """Pooled local_alignment_right (the ``end_r/end_l`` request kind):
-    the ``edit_end`` kernel for the banded regime, the tiny full DP
-    (``tiny_dp``) on the fallback shapes (n <= 2w or m <= w, which bounds
-    both dims by 2w).  Returns (ed, indel); the request's score is -ed
-    (align.py:188)."""
+    ``_end_dp_rows`` with the fallback shapes (n <= 2w or m <= w, which
+    bounds both dims by 2w) as its tiny rows.  Returns (ed, indel); the
+    request's score is -ed (align.py:188)."""
     n, m = n.to(_i32).contiguous(), m.to(_i32).contiguous()
     s, t = s.contiguous(), t.contiguous()
-    banded = edit_end_rows(s, t, n, m, w=w, max_ed=max_ed, I=I)
-    TN = TM = max(8, 2 * w + 2)
     tiny = (n <= 2 * w) | (m <= w)
-    return tiny_dp(s, t, n, m, tiny, banded, NM=TN, MM=TM, w=w,
-                   max_ed=max_ed, end=True).unbind(1)
+    return _end_dp_rows(s, t, n, m, tiny, w=w, max_ed=max_ed, I=I).unbind(1)
+
+
+def _end_dp_rows(s, t, n, m, tiny, *, w, max_ed, I):
+    """(ed, indel) int32 [B, 2] of a middle-DP pool: the ``edit_end``
+    kernel for the banded regime, the tiny full DP (``tiny_dp``) on the
+    rows of the fallback mask tiny."""
+    banded = edit_end_rows(s, t, n, m, w=w, max_ed=max_ed, I=I)
+    TN = max(8, 2 * w + 2)
+    return tiny_dp(s, t, n, m, tiny, banded, NM=TN, MM=TN, w=w,
+                   max_ed=max_ed, end=True)
 
 
 # --------------------------------------------------------------------------
 # the speculative walk waves
 # --------------------------------------------------------------------------
+
+# the pool's per-lane rows beside LANE_KEYS, int32 [len(PROW_KEYS), WPP]
+PROW_KEYS = ("row", "qs0")
+# a pool's int32 rows [len(POOL_ROWS), P]: its DP's two lengths (MID: the
+# query's remq and the reference's exlen; END: the reference's rr and the
+# query's need), then the flat [STW, WPP] index the row was gathered from
+POOL_ROWS = ("n", "m", "inv")
+# a lane's code in a pool map: the leader's pool row (>= 0), or none
+MAP_NONE, MAP_OVER = -1, -2
+# units of a compaction tile (csrc/walk_wave.cu CT), whose counts the
+# kernels keep in an int32 workspace: walk_init's N words of four flags,
+# walk_pool's two pools of STW * WPP slots each
+WAVE_TILE = 1024
+
+
+def wave_tiles(units: int) -> int:
+    """The tiles of a compaction over ``units`` (each counts into one
+    int32 of the workspace)."""
+    return -(-units // WAVE_TILE)
+
+
+class WalkInit(NamedTuple):
+    """The walk's lanes and carried state (``walk_init``)."""
+    inv: torch.Tensor       # int32 [WPP], pool lane -> flat [4N] slot
+    n_act: torch.Tensor     # int32 0-d, live lanes
+    over: torch.Tensor      # bool [4N], active past the WPP lanes
+    act: torch.Tensor       # bool [STW, WPP], the packed common tids
+    p_live: torch.Tensor    # bool [WPP]
+    over_tid: torch.Tensor  # bool [WPP], more common tids than STW
+    ws: torch.Tensor        # int32 [len(WS_KEYS), STW, WPP]
+    slot: torch.Tensor      # int32 [len(SLOT_KEYS), STW, WPP]
+    lane: torch.Tensor      # int32 [len(LANE_KEYS), WPP]
+    prow: torch.Tensor      # int32 [len(PROW_KEYS), WPP]
+    events: torch.Tensor    # int32 [STW, EW, EV_NF, WPP], zeros
+    nev: torch.Tensor       # int32 [STW, WPP], zeros
+
+
+class WalkPool(NamedTuple):
+    """One wave's two DP pools (``walk_pool``): MID for the middle and
+    trailing DPs (edit_end, tiny_dp), END for the end DPs (xdrop).  A pool
+    row holds a leader, the first slot of a lane with its geometry; row j
+    is the leader of rank j + 1 in slot-major flat order; rows past n
+    gather flat STW * WPP - 1."""
+    m_win: torch.Tensor     # int8 [2, MIDP, I - 1]: query, reference
+    m_rows: torch.Tensor    # int32 [len(POOL_ROWS), MIDP]: remq, exlen, inv
+    m_tiny: torch.Tensor    # bool [MIDP], the rows tiny_dp takes
+    e_win: torch.Tensor     # int8 [2, ENDP, I - 1]: reference, query
+    e_rows: torch.Tensor    # int32 [len(POOL_ROWS), ENDP]: rr, need, inv
+    n: torch.Tensor         # int32 [2], live rows of MID and END
+    maps: torch.Tensor      # int32 [2, STW, WPP], each lane's row or code
+
 
 def walk_waves(act4, pos4, len4, aiv4, row4, qs04, left4, fiv, riv,
                seqsf, L, genome, ad, fa, *, band, max_ed, max_sc,
@@ -206,17 +267,127 @@ def walk_waves(act4, pos4, len4, aiv4, row4, qs04, left4, fiv, riv,
     utils.cpp:322-352: f_iv's tid list filtered by membership in r_iv's,
     duplicates kept).
 
+    One ``walk_init``, then per wave ``walk_scan`` -> ``walk_pool`` -> the
+    pooled DPs (edit_end + tiny_dp on MID, xdrop on END) -> ``walk_commit``.
     Returns the pooled event tensor + metadata for ``walk_fold``."""
-    from .device_full import _compact, _drop_wrap, _gather_window, \
-        _scatter_pool
+    N = fiv.reshape(-1).shape[0]
+    G = genome.shape[0]
+    mp = max(MIDP) if isinstance(MIDP, (tuple, list)) else MIDP
+    ep = max(ENDP) if isinstance(ENDP, (tuple, list)) else ENDP
+    wi = walk_init(act4, pos4, len4, aiv4, row4, qs04, fiv.reshape(-1),
+                   riv.reshape(-1), ad.iv_epos, fa.iv_tids, fa.trans_start,
+                   fa.t2s_off, left4=tuple(left4), band=band, EW=EW, WPP=WPP)
+    ws, events, nev = wi.ws, wi.events, wi.nev
+    for _ in range(EW):
+        ws = walk_scan(ws, wi.slot, wi.lane, ad.iv_spos, ad.iv_epos,
+                       fa.t2s_state, KSCAN=KSCAN, G=G)
+        pool = walk_pool(ws, wi.lane, wi.prow, seqsf, genome, L=L,
+                         band=band, MIDP=mp, ENDP=ep, I=I)
+        q_win, r_win = pool.m_win.unbind(0)
+        remq, exlen, _ = pool.m_rows.unbind(0)
+        md = _end_dp_rows(q_win, r_win, remq, exlen, pool.m_tiny, w=band,
+                          max_ed=max_ed, I=I)
+        s_e, t_q = pool.e_win.unbind(0)
+        rr, need, _ = pool.e_rows.unbind(0)
+        xres = xdrop_rows(s_e, t_q, rr, need, w=band, mat=mat, mis=mis,
+                          ind=ind, xd=xd, I=I)
+        ws = walk_commit(ws, pool.maps, md, xres, pool.e_rows, wi.lane,
+                         ad.iv_spos, ad.iv_epos, events, nev, mat=mat,
+                         mis=mis, band=band, max_ed=max_ed, max_sc=max_sc)
+    lane_defer = ((ws[WS_KEYS.index("stat")] != WK_DONE) & wi.act).any(
+        dim=0) | wi.over_tid                                     # [WPP]
+    ST = wi.act.shape[0]
+    return dict(events=events.reshape(ST * EW, EV_NF, WPP), act=wi.act,
+                inv=wi.inv, n_act=wi.n_act, over=wi.over,
+                lane_defer=lane_defer, p_pos=wi.lane[2], p_len=wi.lane[1],
+                p_live=wi.p_live, N=N, ST=ST, EW=EW, WPP=WPP)
+
+
+def walk_init(act4, pos4, len4, aiv4, row4, qs04, fiv, riv, iv_epos,
+              iv_tids, trans_start, t2s_off, *, left4, band: int, EW: int,
+              WPP: int):
+    """The walk's lanes and initial state (the reference's lane set-up
+    before its wave loop): the [4, N] lane tables' active slots compacted
+    into WPP lanes, each lane's common transcripts (f_iv's tids that r_iv
+    also lists, fiv / riv int32 [N]) packed in order into STW = min(ST, 8)
+    slots, the scan state, the slot and lane constants and zeroed events.
+    Returns a ``WalkInit``.  On a CPU tensor its plain version
+    (``_walk_init_plain``); on a CUDA tensor the ``walk_init`` kernels
+    (csrc/walk_wave.cu), or a raise."""
+    kw = dict(left4=tuple(left4), band=band, EW=EW, WPP=WPP)
+    if not act4.is_cuda:
+        return _walk_init_plain(act4, pos4, len4, aiv4, row4, qs04, fiv, riv,
+                                iv_epos, iv_tids, trans_start, t2s_off, **kw)
+    N = fiv.shape[0]
+    NIV, ST = iv_tids.shape
+    STW_ = min(ST, STW)
+    if N == 0 or NIV == 0 or ST == 0:
+        raise ValueError(f"walk_init takes N, NIV and ST above 0, got {N}, "
+                         f"{NIV}, {ST}")
+    if act4.data_ptr() % 4:           # the kernel reads words of flags
+        act4 = act4.clone()
+    dev = act4.device
+    i32, b8 = _i32, torch.bool
+    tiles = torch.empty((wave_tiles(N),), dtype=i32, device=dev)
+    out = WalkInit(
+        inv=torch.empty((WPP,), dtype=i32, device=dev),
+        n_act=torch.empty((), dtype=i32, device=dev),
+        over=torch.empty((4 * N,), dtype=b8, device=dev),
+        act=torch.empty((STW_, WPP), dtype=b8, device=dev),
+        p_live=torch.empty((WPP,), dtype=b8, device=dev),
+        over_tid=torch.empty((WPP,), dtype=b8, device=dev),
+        ws=torch.empty((len(WS_KEYS), STW_, WPP), dtype=i32, device=dev),
+        slot=torch.empty((len(SLOT_KEYS), STW_, WPP), dtype=i32,
+                         device=dev),
+        lane=torch.empty((len(LANE_KEYS), WPP), dtype=i32, device=dev),
+        prow=torch.empty((len(PROW_KEYS), WPP), dtype=i32, device=dev),
+        events=torch.empty((STW_, EW, EV_NF, WPP), dtype=i32, device=dev),
+        nev=torch.empty((STW_, WPP), dtype=i32, device=dev))
+    _ext.launch_tensors(
+        "walk_init", walk_init_args(act4, pos4, len4, aiv4, row4, qs04, fiv,
+                                    riv, iv_epos, iv_tids, trans_start,
+                                    t2s_off, out, tiles),
+        (N, WPP, STW_, ST, iv_epos.shape[0], trans_start.shape[0], EW, band,
+         sum(1 << f for f, left in enumerate(left4) if left)))
+    return out
+
+
+def walk_init_args(act4, pos4, len4, aiv4, row4, qs04, fiv, riv, iv_epos,
+                   iv_tids, trans_start, t2s_off, out, tiles):
+    """The (tensor, dtype, shape) arguments of the ``walk_init`` kernels,
+    in their order; ``out`` a ``WalkInit``."""
+    N = fiv.shape[0]
+    STW_, EW, WPP = out.events.shape[0], out.events.shape[1], \
+        out.events.shape[3]
+    i32, b8 = _i32, torch.bool
+    NT = trans_start.shape[0]
+    return [(act4, b8, (4, N)), *((x, i32, (4, N)) for x in (
+        pos4, len4, aiv4, row4, qs04)), (fiv, i32, (N,)), (riv, i32, (N,)),
+        (iv_epos, i32, (iv_epos.shape[0],)),
+        (iv_tids, i32, tuple(iv_tids.shape)), (trans_start, i32, (NT,)),
+        (t2s_off, i32, (NT + 1,)), (out.inv, i32, (WPP,)),
+        (out.n_act, i32, ()), (out.over, b8, (4 * N,)),
+        (out.act, b8, (STW_, WPP)), (out.p_live, b8, (WPP,)),
+        (out.over_tid, b8, (WPP,)),
+        (out.ws, i32, (len(WS_KEYS), STW_, WPP)),
+        (out.slot, i32, (len(SLOT_KEYS), STW_, WPP)),
+        (out.lane, i32, (len(LANE_KEYS), WPP)),
+        (out.prow, i32, (len(PROW_KEYS), WPP)),
+        (out.events, i32, (STW_, EW, EV_NF, WPP)),
+        (out.nev, i32, (STW_, WPP)), (tiles, i32, (wave_tiles(N),))]
+
+
+def _walk_init_plain(act4, pos4, len4, aiv4, row4, qs04, fiv, riv, iv_epos,
+                     iv_tids, trans_start, t2s_off, *, left4, band, EW,
+                     WPP):
+    """The plain version of ``walk_init``: torch ops over every lane."""
+    from .device_full import _compact
 
     dev = act4.device
-    N = fiv.reshape(-1).shape[0]
-    ST = fa.iv_tids.shape[1]
-    NIV = ad.iv_spos.shape[0]
-    NT = fa.trans_start.shape[0]
-    G = genome.shape[0]
-    RL = seqsf.shape[0]
+    N = fiv.shape[0]
+    ST = iv_tids.shape[1]
+    NIV = iv_epos.shape[0]
+    NT = trans_start.shape[0]
 
     inv, n_act, over = _compact(act4.reshape(-1), WPP)   # pool -> flat4 idx
     inv_l = inv.long()
@@ -233,14 +404,14 @@ def walk_waves(act4, pos4, len4, aiv4, row4, qs04, left4, fiv, riv,
             p_left |= fam == f
     p_live = torch.arange(WPP, dtype=_i32, device=dev) < n_act
     lane_n = (inv % N).long()                            # pair slot of lane
-    p_fiv = fiv.reshape(-1)[lane_n]
-    p_riv = riv.reshape(-1)[lane_n]
+    p_fiv = fiv[lane_n]
+    p_riv = riv[lane_n]
 
     # ---- per-tid init ([ST, WPP]) -------------------------------------
     fivc = torch.clamp(p_fiv, 0, NIV - 1).long()
     rivc = torch.clamp(p_riv, 0, NIV - 1).long()
-    tids = fa.iv_tids[fivc].T                            # [ST, WPP]
-    tr = fa.iv_tids[rivc].T
+    tids = iv_tids[fivc].T                               # [ST, WPP]
+    tr = iv_tids[rivc].T
     memb = (tids[:, None, :] == tr[None, :, :]).any(dim=1)
     act = p_live[None, :] & (tids >= 0) & memb
 
@@ -256,15 +427,14 @@ def walk_waves(act4, pos4, len4, aiv4, row4, qs04, left4, fiv, riv,
          for j in range(stw)], dim=0)                    # [STW, WPP]
     tids = torch.gather(tids, 0, torch.clamp(pack, 0, ST - 1).long())
     act = (pack < ST) & ~over_tid[None, :]
-    ST = stw
 
     tc = torch.clamp(tids, 0, NT - 1).long()
-    tstart = fa.trans_start[tc]
-    toff = fa.t2s_off[tc]
-    tlen = fa.t2s_off[tc + 1] - toff
+    tstart = trans_start[tc]
+    toff = t2s_off[tc]
+    tlen = t2s_off[tc + 1] - toff
 
     aivc = torch.clamp(p_aiv, 0, NIV - 1).long()
-    anchor_rem = ad.iv_epos[aivc] - p_pos                # right-walk exon_len
+    anchor_rem = iv_epos[aivc] - p_pos                   # right-walk exon_len
 
     shp = act.shape
     is_left = p_left[None, :].expand(shp)
@@ -277,17 +447,100 @@ def walk_waves(act4, pos4, len4, aiv4, row4, qs04, left4, fiv, riv,
         stat=torch.where(act, WK_SCAN, WK_DONE).to(_i32),
         remref=(p_len + band)[None, :].expand(shp))
     ws = torch.stack([st0.get(k, zero) for k in WS_KEYS])
-    slot = torch.stack([tstart, toff, tlen])             # SLOT_KEYS
-    lane = torch.stack([p_left.to(_i32), p_len, p_pos])  # LANE_KEYS
-    nev = zero
     # events [ST, EW, EV_NF, WPP]; slot e = the lane's e-th emission
-    events = torch.zeros((ST, EW, EV_NF, WPP), dtype=_i32, device=dev)
+    return WalkInit(
+        inv=inv, n_act=n_act, over=over, act=act, p_live=p_live,
+        over_tid=over_tid, ws=ws, slot=torch.stack([tstart, toff, tlen]),
+        lane=torch.stack([p_left.to(_i32), p_len, p_pos]),
+        prow=torch.stack([p_row, p_qs0]),
+        events=torch.zeros((stw, EW, EV_NF, WPP), dtype=_i32, device=dev),
+        nev=zero.clone())
 
+
+def walk_pool(ws, lane, prow, seqsf, genome, *, L: int, band: int,
+              MIDP: int, ENDP: int, I: int = 128):
+    """One wave's DP pools from the scan state ws int32 [len(WS_KEYS), STW,
+    WPP]: the lanes pending a middle or trailing DP (MID) and an end DP
+    (END), each deduplicated across a lane's slots by geometry (MID:
+    pend_xpos, pend_exlen, pend_cov; END: pend_xpos, pend_cov, pend_rr),
+    compacted in slot-major order into MIDP / ENDP rows, and their query
+    (seqsf int8 [RL], rows of L bases) and reference (genome int8 [G])
+    windows of I - 1 bases gathered.  lane int32 [len(LANE_KEYS), WPP],
+    prow int32 [len(PROW_KEYS), WPP].  Returns a ``WalkPool``.  On a CPU
+    tensor its plain version (``_walk_pool_plain``); on a CUDA tensor the
+    ``walk_pool`` kernels (csrc/walk_wave.cu), or a raise."""
+    kw = dict(L=L, band=band, MIDP=MIDP, ENDP=ENDP, I=I)
+    if not ws.is_cuda:
+        return _walk_pool_plain(ws, lane, prow, seqsf, genome, **kw)
+    _, STW_, WPP = ws.shape
+    if STW_ > STW or STW_ * WPP == 0 or min(MIDP, ENDP) <= 0:
+        raise ValueError(f"walk_pool takes 1-{STW} slots of lanes and pools "
+                         f"of rows, got {STW_} x {WPP} into {MIDP} / {ENDP}")
+    dev = ws.device
+    W = I - 1
+    tiles = torch.empty((2 * wave_tiles(STW_ * WPP),), dtype=_i32,
+                        device=dev)
+    out = WalkPool(
+        m_win=torch.empty((2, MIDP, W), dtype=torch.int8, device=dev),
+        m_rows=torch.empty((len(POOL_ROWS), MIDP), dtype=_i32, device=dev),
+        m_tiny=torch.empty((MIDP,), dtype=torch.bool, device=dev),
+        e_win=torch.empty((2, ENDP, W), dtype=torch.int8, device=dev),
+        e_rows=torch.empty((len(POOL_ROWS), ENDP), dtype=_i32, device=dev),
+        n=torch.empty((2,), dtype=_i32, device=dev),
+        maps=torch.empty((2, STW_, WPP), dtype=_i32, device=dev))
+    _ext.launch_tensors(
+        "walk_pool", walk_pool_args(ws, lane, prow, seqsf, genome, out,
+                                    tiles),
+        (STW_, WPP, seqsf.shape[0], genome.shape[0], L, band, MIDP, ENDP, W))
+    return out
+
+
+def walk_pool_args(ws, lane, prow, seqsf, genome, out, tiles):
+    """The (tensor, dtype, shape) arguments of the ``walk_pool`` kernels, in
+    their order; ``out`` a ``WalkPool``."""
+    _, STW_, WPP = ws.shape
+    _, MIDP, W = out.m_win.shape
+    ENDP = out.e_win.shape[1]
+    i32, i8 = _i32, torch.int8
+    return [(ws, i32, (len(WS_KEYS), STW_, WPP)),
+            (lane, i32, (len(LANE_KEYS), WPP)),
+            (prow, i32, (len(PROW_KEYS), WPP)),
+            (seqsf, i8, (seqsf.shape[0],)), (genome, i8, (genome.shape[0],)),
+            (out.m_win, i8, (2, MIDP, W)),
+            (out.m_rows, i32, (len(POOL_ROWS), MIDP)),
+            (out.m_tiny, torch.bool, (MIDP,)), (out.e_win, i8, (2, ENDP, W)),
+            (out.e_rows, i32, (len(POOL_ROWS), ENDP)), (out.n, i32, (2,)),
+            (out.maps, i32, (2, STW_, WPP)),
+            (tiles, i32, (2 * wave_tiles(STW_ * WPP),))]
+
+
+def _pool_map(lead, inv, n, over):
+    """Each lane's code in a pool: its leader's pool row, MAP_OVER where
+    the leader's rank passed the pool, MAP_NONE off the pool (what
+    ``_scatter_pool`` and the gather by leader read: 0 then)."""
+    from .device_full import _scatter_pool
+    ST, WPP = lead.shape
+    rows = torch.arange(1, inv.shape[0] + 1, dtype=_i32, device=inv.device)
+    row = _scatter_pool(rows, inv, n, ST * WPP).reshape(ST, WPP) - 1
+    over2 = torch.gather(over.reshape(ST, WPP), 0, lead)
+    return torch.where(over2, MAP_OVER, torch.gather(row, 0, lead))
+
+
+def _walk_pool_plain(ws, lane, prow, seqsf, genome, *, L, band, MIDP, ENDP,
+                     I=128):
+    """The plain version of ``walk_pool``: torch ops over every slot."""
+    from .device_full import _compact, _gather_window
+
+    _, ST, WPP = ws.shape
+    dev = ws.device
+    RL = seqsf.shape[0]
+    stat, pend_xpos, pend_exlen, pend_cov, pend_rr = (
+        ws[WS_KEYS.index(k)] for k in ("stat", "pend_xpos", "pend_exlen",
+                                       "pend_cov", "pend_rr"))
+    p_left, p_len = lane[0] != 0, lane[1]
+    p_row, p_qs0 = prow.unbind(0)
     io = torch.arange(I - 1, dtype=_i32, device=dev)
-    ew_io = torch.arange(EW, dtype=_i32, device=dev)
     t_io = torch.arange(ST, dtype=_i32, device=dev)
-    mp = max(MIDP) if isinstance(MIDP, (tuple, list)) else MIDP
-    ep = max(ENDP) if isinstance(ENDP, (tuple, list)) else ENDP
 
     def dedup(mask, fields):
         """Lanes of one pair side with the same walk geometry: only the
@@ -299,138 +552,197 @@ def walk_waves(act4, pos4, len4, aiv4, row4, qs04, left4, fiv, riv,
         lead = torch.where(mask, lead, t_io[:, None])
         return lead.long(), mask & (lead == t_io[:, None])
 
-    def pooled(vals, inv_, n_, lead):
-        flat = _scatter_pool(vals, inv_, n_, ST * WPP).reshape(ST, WPP)
-        return torch.gather(flat, 0, lead)
+    # ---- middle / trailing DP pool (edit_end) ---------------------
+    m_act = (stat == WK_PMID) | (stat == WK_PTRAIL)
+    m_lead, m_uniq = dedup(m_act, (pend_xpos, pend_exlen, pend_cov))
+    m_inv, m_n, m_over = _compact(m_uniq.reshape(-1), MIDP)
+    m_inv_l = m_inv.long()
+    lane_m = (m_inv % WPP).long()
+    ml = p_left[lane_m]
+    m_xpos = pend_xpos.reshape(-1)[m_inv_l]
+    m_exlen = pend_exlen.reshape(-1)[m_inv_l]
+    m_cov = pend_cov.reshape(-1)[m_inv_l]
+    m_qlen = p_len[lane_m]
+    m_remq = torch.minimum(m_exlen + band, m_qlen - m_cov)
+    m_row = p_row[lane_m]
+    m_qs0 = p_qs0[lane_m]
+    # q window: right [qs0+cov, qs0+cov+remq) forward; left
+    # [qs0+qlen-cov-remq, qs0+qlen-cov) reversed (extend.py:534-535)
+    qi_f = m_row[:, None] * L + (m_qs0 + m_cov)[:, None] + io[None, :]
+    qi_r = m_row[:, None] * L \
+        + (m_qs0 + m_qlen - m_cov - m_remq)[:, None] \
+        + (m_remq[:, None] - 1 - io[None, :])
+    qi = torch.where(ml[:, None], qi_r, qi_f)
+    q_win = torch.where(io[None, :] < m_remq[:, None],
+                        seqsf[torch.clamp(qi, 0, RL - 1).long()], 127)
+    r_f = _gather_window(genome, m_xpos, m_exlen, I - 1)
+    r_r = _gather_window(genome, m_xpos - m_exlen - 1, m_exlen, I - 1,
+                         reverse=True)
+    r_win = torch.where(ml[:, None], r_r, r_f)
+    # the rows the tiny DP takes (align.py:88-90)
+    m_tiny = (m_remq <= 2 * band) | (m_exlen <= band)
 
-    for _ in range(EW):
-        # ---- scan up to KSCAN intervals -------------------------------
-        ws = walk_scan(ws, slot, lane, ad.iv_spos, ad.iv_epos, fa.t2s_state,
-                       KSCAN=KSCAN, G=G)
-        (i_abs, xpos, exlen, covered, first, stat, pend_iv, pend_xpos,
-         pend_exlen, pend_cov, pend_rr, remref) = ws.unbind(0)
+    # ---- end DP pool (xdrop) ---------------------------------------
+    e_act = stat == WK_PEND
+    e_lead, e_uniq = dedup(e_act, (pend_xpos, pend_cov, pend_rr))
+    e_inv, e_n, e_over = _compact(e_uniq.reshape(-1), ENDP)
+    e_inv_l = e_inv.long()
+    lane_e = (e_inv % WPP).long()
+    el = p_left[lane_e]
+    e_xpos = pend_xpos.reshape(-1)[e_inv_l]
+    e_cov = pend_cov.reshape(-1)[e_inv_l]
+    e_rr = pend_rr.reshape(-1)[e_inv_l]
+    e_need = p_len[lane_e] - e_cov
+    e_row = p_row[lane_e]
+    e_qs0 = p_qs0[lane_e]
+    # q: right [qs0+cov, qs0+cov+need) forward; left [qs0, qs0+need)
+    # reversed (the host end DP uses qseq[:qseq_len - covered])
+    eq_f = e_row[:, None] * L + (e_qs0 + e_cov)[:, None] + io[None, :]
+    eq_r = e_row[:, None] * L + e_qs0[:, None] \
+        + (e_need[:, None] - 1 - io[None, :])
+    eqi = torch.where(el[:, None], eq_r, eq_f)
+    t_q = torch.where(io[None, :] < e_need[:, None],
+                      seqsf[torch.clamp(eqi, 0, RL - 1).long()], 127)
+    er_f = _gather_window(genome, e_xpos, e_rr, I - 1)
+    er_r = _gather_window(genome, e_xpos - e_rr - 1, e_rr, I - 1,
+                          reverse=True)
+    s_e = torch.where(el[:, None], er_r, er_f)
+    return WalkPool(
+        m_win=torch.stack([q_win, r_win]),
+        m_rows=torch.stack([m_remq, m_exlen, m_inv]), m_tiny=m_tiny,
+        e_win=torch.stack([s_e, t_q]),
+        e_rows=torch.stack([e_rr, e_need, e_inv]),
+        n=torch.stack([m_n, e_n]),
+        maps=torch.stack([_pool_map(m_lead, m_inv, m_n, m_over),
+                          _pool_map(e_lead, e_inv, e_n, e_over)]))
 
-        # ---- middle / trailing DP pool (edit_end) ---------------------
-        m_act = (stat == WK_PMID) | (stat == WK_PTRAIL)
-        m_lead, m_uniq = dedup(m_act, (pend_xpos, pend_exlen, pend_cov))
-        m_inv, m_n, m_over = _compact(m_uniq.reshape(-1), mp)
-        m_inv_l = m_inv.long()
-        lane_m = (m_inv % WPP).long()
-        ml = p_left[lane_m]
-        m_xpos = pend_xpos.reshape(-1)[m_inv_l]
-        m_exlen = pend_exlen.reshape(-1)[m_inv_l]
-        m_cov = pend_cov.reshape(-1)[m_inv_l]
-        m_qlen = p_len[lane_m]
-        m_remq = torch.minimum(m_exlen + band, m_qlen - m_cov)
-        m_row = p_row[lane_m]
-        m_qs0 = p_qs0[lane_m]
-        # q window: right [qs0+cov, qs0+cov+remq) forward; left
-        # [qs0+qlen-cov-remq, qs0+qlen-cov) reversed (extend.py:534-535)
-        qi_f = m_row[:, None] * L + (m_qs0 + m_cov)[:, None] + io[None, :]
-        qi_r = m_row[:, None] * L \
-            + (m_qs0 + m_qlen - m_cov - m_remq)[:, None] \
-            + (m_remq[:, None] - 1 - io[None, :])
-        qi = torch.where(ml[:, None], qi_r, qi_f)
-        q_win = torch.where(io[None, :] < m_remq[:, None],
-                            seqsf[torch.clamp(qi, 0, RL - 1).long()], 127)
-        r_f = _gather_window(genome, m_xpos, m_exlen, I - 1)
-        r_r = _gather_window(genome, m_xpos - m_exlen - 1, m_exlen, I - 1,
-                             reverse=True)
-        r_win = torch.where(ml[:, None], r_r, r_f)
-        md_ed, md_in = _end_dp_pool(q_win, r_win, m_remq, m_exlen, w=band,
-                                    max_ed=max_ed, I=I)
-        md_ed_f = pooled(md_ed, m_inv, m_n, m_lead)
-        md_in_f = pooled(md_in, m_inv, m_n, m_lead)
 
-        # ---- end DP pool (xdrop) ---------------------------------------
-        e_act = stat == WK_PEND
-        e_lead, e_uniq = dedup(e_act, (pend_xpos, pend_cov, pend_rr))
-        e_inv, e_n, e_over = _compact(e_uniq.reshape(-1), ep)
-        e_inv_l = e_inv.long()
-        lane_e = (e_inv % WPP).long()
-        el = p_left[lane_e]
-        e_xpos = pend_xpos.reshape(-1)[e_inv_l]
-        e_cov = pend_cov.reshape(-1)[e_inv_l]
-        e_rr = pend_rr.reshape(-1)[e_inv_l]
-        e_need = p_len[lane_e] - e_cov
-        e_row = p_row[lane_e]
-        e_qs0 = p_qs0[lane_e]
-        # q: right [qs0+cov, qs0+cov+need) forward; left [qs0, qs0+need)
-        # reversed (the host end DP uses qseq[:qseq_len - covered])
-        eq_f = e_row[:, None] * L + (e_qs0 + e_cov)[:, None] + io[None, :]
-        eq_r = e_row[:, None] * L + e_qs0[:, None] \
-            + (e_need[:, None] - 1 - io[None, :])
-        eqi = torch.where(el[:, None], eq_r, eq_f)
-        t_q = torch.where(io[None, :] < e_need[:, None],
-                          seqsf[torch.clamp(eqi, 0, RL - 1).long()], 127)
-        er_f = _gather_window(genome, e_xpos, e_rr, I - 1)
-        er_r = _gather_window(genome, e_xpos - e_rr - 1, e_rr, I - 1,
-                              reverse=True)
-        s_e = torch.where(el[:, None], er_r, er_f)
-        xsc, xon_s, xon_t = xdrop_batch(
-            s_e.contiguous(), t_q.contiguous(), e_rr.contiguous(),
-            e_need.contiguous(), w=band, mat=mat, mis=mis, ind=ind, xd=xd,
-            I=I)
-        wrap = dict(mat=mat, mis=mis, w=band, max_ed=max_ed, max_sc=max_sc)
-        dl = _drop_wrap(xsc, xon_s, xon_t, e_need, left=True, **wrap)
-        dr = _drop_wrap(xsc, xon_s, xon_t, e_need, left=False, **wrap)
-        e_ed_f, e_scl_f, e_ind_f, e_scr_f = (
-            pooled(torch.where(el, a, b), e_inv, e_n, e_lead)
-            for a, b in zip(dl, dr))
+def walk_commit(ws, maps, md, xres, e_rows, lane, iv_spos, iv_epos, events,
+                nev, *, mat: int, mis: int, band: int, max_ed: int,
+                max_sc: int):
+    """One wave's commit on the scan state ws int32 [len(WS_KEYS), STW,
+    WPP]: each lane reads its leader's pooled results through ``maps``
+    (``walk_pool``): md int32 [MIDP, 2], the middle DPs' (ed, indel) after
+    tiny_dp; xres int32 [ENDP, 3], the end DPs' (score, on_s, on_t), with
+    _drop_wrap for the lane's side on e_rows' need.  A lane whose leader
+    overflowed its pool keeps its pending status; every other pending lane
+    writes its one event of the wave into events int32 [STW, EW, EV_NF,
+    WPP] at slot clamp(nev, 0, EW - 1) and advances nev int32 [STW, WPP],
+    both in place; a middle DP moves the scan on.  Returns the new state,
+    a tensor like ws.  On a CPU tensor its plain version
+    (``_walk_commit_plain``); on a CUDA tensor the ``walk_commit`` kernel
+    (csrc/walk_wave.cu), or a raise."""
+    kw = dict(mat=mat, mis=mis, band=band, max_ed=max_ed, max_sc=max_sc)
+    if not ws.is_cuda:
+        return _walk_commit_plain(ws, maps, md, xres, e_rows, lane, iv_spos,
+                                  iv_epos, events, nev, **kw)
+    if mat - mis <= 0:
+        raise ValueError(f"walk_commit divides by mat - mis > 0, got "
+                         f"{mat} - {mis}")
+    out = torch.empty_like(ws)
+    _, STW_, WPP = ws.shape
+    if STW_ * WPP == 0:
+        return out
+    _ext.launch_tensors(
+        "walk_commit", walk_commit_args(ws, maps, md, xres, e_rows, lane,
+                                        iv_spos, iv_epos, events, nev, out),
+        (STW_, WPP, events.shape[1], md.shape[0], xres.shape[0],
+         iv_spos.shape[0], mat, mis, band, max_ed, max_sc))
+    return out
 
-        # pool-overflow lanes keep their pending status: they retry in the
-        # next wave's pool and defer if still unresolved at the end
-        # (duplicates inherit their leader's overflow)
-        m_over2 = torch.gather(m_over.reshape(ST, WPP), 0, m_lead)
-        e_over2 = torch.gather(e_over.reshape(ST, WPP), 0, e_lead)
 
-        # ---- commit: one emit per wave (kinds exclude each other) -------
-        mid_c = (stat == WK_PMID) & ~m_over2
-        tr_c = (stat == WK_PTRAIL) & ~m_over2
-        end_c = (stat == WK_PEND) & ~e_over2
-        endnd_c = stat == WK_PENDND
-        any_c = mid_c | tr_c | end_c | endnd_c
-        is_end_ev = end_c | endnd_c
-        kind_v = torch.where(mid_c, EVK_MID, torch.where(
-            tr_c, EVK_TRAIL, torch.where(end_c, EVK_END, EVK_ENDND))).to(_i32)
-        aux_v = torch.where(is_end_ev, pend_cov, pend_exlen)
-        ed_v = torch.where(end_c, e_ed_f,
-                           torch.where(endnd_c, zero, md_ed_f))
-        in_v = torch.where(end_c, e_ind_f,
-                           torch.where(endnd_c, zero, md_in_f))
-        scl_v = torch.where(end_c, e_scl_f, zero)
-        scr_v = torch.where(end_c, e_scr_f,
-                            torch.where(endnd_c, zero, -md_ed_f))
-        upd = torch.stack([kind_v, pend_xpos, aux_v, ed_v, in_v, scl_v,
-                           scr_v], dim=1)                # [ST, NF, WPP]
-        sel = (ew_io[None, :, None]
-               == torch.clamp(nev, 0, EW - 1)[:, None, :]) & any_c[:, None, :]
-        events = torch.where(sel[:, :, None, :], upd[:, None, :, :], events)
-        nev = torch.where(any_c, nev + 1, nev)
+def walk_commit_args(ws, maps, md, xres, e_rows, lane, iv_spos, iv_epos,
+                     events, nev, ws_out):
+    """The (tensor, dtype, shape) arguments of the ``walk_commit`` kernel,
+    in its order."""
+    _, STW_, WPP = ws.shape
+    EW = events.shape[1]
+    MIDP, ENDP = md.shape[0], xres.shape[0]
+    NIV = iv_spos.shape[0]
+    shp = (len(WS_KEYS), STW_, WPP)
+    i32 = _i32
+    return [(ws, i32, shp), (maps, i32, (2, STW_, WPP)), (md, i32, (MIDP, 2)),
+            (xres, i32, (ENDP, 3)), (e_rows, i32, (len(POOL_ROWS), ENDP)),
+            (lane, i32, (len(LANE_KEYS), WPP)), (iv_spos, i32, (NIV,)),
+            (iv_epos, i32, (NIV,)), (events, i32, (STW_, EW, EV_NF, WPP)),
+            (nev, i32, (STW_, WPP)), (ws_out, i32, shp)]
 
-        # middle commit: covered/remref advance + rescan positioning
-        covered = torch.where(mid_c, covered + pend_exlen - md_in_f, covered)
-        remref = torch.where(mid_c, remref - pend_exlen, remref)
-        pivc = torch.clamp(pend_iv, 0, NIV - 1).long()
-        piv_len = ad.iv_epos[pivc] - ad.iv_spos[pivc] + 1
-        # right: rspos = iv_spos[pend]-1, exlen = len(pend), i = pend+1
-        # (extend.py:421-428); left: exlen = 0, i = pend-1 (:545-547)
-        xpos = torch.where(mid_c & ~is_left, ad.iv_spos[pivc] - 1, xpos)
-        exlen = torch.where(mid_c & ~is_left, piv_len,
-                            torch.where(mid_c & is_left, 0, exlen))
-        i_abs = torch.where(mid_c & ~is_left, pend_iv + 1,
-                            torch.where(mid_c & is_left, pend_iv - 1, i_abs))
-        stat = torch.where(mid_c, WK_SCAN,
-                           torch.where(tr_c | end_c | endnd_c, WK_DONE,
-                                       stat))
-        ws = torch.stack([i_abs, xpos, exlen, covered, first, stat, pend_iv,
-                          pend_xpos, pend_exlen, pend_cov, pend_rr, remref])
 
-    lane_defer = ((stat != WK_DONE) & act).any(dim=0) | over_tid   # [WPP]
-    return dict(events=events.reshape(ST * EW, EV_NF, WPP), act=act,
-                inv=inv, n_act=n_act, over=over, lane_defer=lane_defer,
-                p_pos=p_pos, p_len=p_len, p_live=p_live, N=N, ST=ST,
-                EW=EW, WPP=WPP)
+def _walk_commit_plain(ws, maps, md, xres, e_rows, lane, iv_spos, iv_epos,
+                       events, nev, *, mat, mis, band, max_ed, max_sc):
+    """The plain version of ``walk_commit``: torch ops over every slot."""
+    from .device_full import _drop_wrap
+
+    (i_abs, xpos, exlen, covered, first, stat, pend_iv, pend_xpos,
+     pend_exlen, pend_cov, pend_rr, remref) = ws.unbind(0)
+    _, ST, WPP = ws.shape
+    EW = events.shape[1]
+    NIV = iv_spos.shape[0]
+    ew_io = torch.arange(EW, dtype=_i32, device=ws.device)
+    is_left = (lane[0] != 0)[None, :].expand(ST, WPP)
+    zero = torch.zeros((ST, WPP), dtype=_i32, device=ws.device)
+    m_map, e_map = maps.unbind(0)
+
+    def pooled(vals, code):
+        return torch.where(code >= 0, vals[torch.clamp(code, min=0).long()],
+                           0)
+
+    md_ed_f, md_in_f = (pooled(v, m_map) for v in md.unbind(1))
+    xsc, xon_s, xon_t = xres.unbind(1)
+    e_need, e_inv = e_rows[1], e_rows[2]
+    el = lane[0][(e_inv % WPP).long()] != 0
+    wrap = dict(mat=mat, mis=mis, w=band, max_ed=max_ed, max_sc=max_sc)
+    dl = _drop_wrap(xsc, xon_s, xon_t, e_need, left=True, **wrap)
+    dr = _drop_wrap(xsc, xon_s, xon_t, e_need, left=False, **wrap)
+    e_ed_f, e_scl_f, e_ind_f, e_scr_f = (
+        pooled(torch.where(el, a, b), e_map) for a, b in zip(dl, dr))
+
+    # pool-overflow lanes keep their pending status: they retry in the
+    # next wave's pool and defer if still unresolved at the end
+    # (duplicates inherit their leader's overflow)
+    m_over2, e_over2 = m_map == MAP_OVER, e_map == MAP_OVER
+
+    # ---- commit: one emit per wave (kinds exclude each other) -------
+    mid_c = (stat == WK_PMID) & ~m_over2
+    tr_c = (stat == WK_PTRAIL) & ~m_over2
+    end_c = (stat == WK_PEND) & ~e_over2
+    endnd_c = stat == WK_PENDND
+    any_c = mid_c | tr_c | end_c | endnd_c
+    is_end_ev = end_c | endnd_c
+    kind_v = torch.where(mid_c, EVK_MID, torch.where(
+        tr_c, EVK_TRAIL, torch.where(end_c, EVK_END, EVK_ENDND))).to(_i32)
+    aux_v = torch.where(is_end_ev, pend_cov, pend_exlen)
+    ed_v = torch.where(end_c, e_ed_f,
+                       torch.where(endnd_c, zero, md_ed_f))
+    in_v = torch.where(end_c, e_ind_f,
+                       torch.where(endnd_c, zero, md_in_f))
+    scl_v = torch.where(end_c, e_scl_f, zero)
+    scr_v = torch.where(end_c, e_scr_f,
+                        torch.where(endnd_c, zero, -md_ed_f))
+    upd = torch.stack([kind_v, pend_xpos, aux_v, ed_v, in_v, scl_v,
+                       scr_v], dim=1)                # [ST, NF, WPP]
+    sel = (ew_io[None, :, None]
+           == torch.clamp(nev, 0, EW - 1)[:, None, :]) & any_c[:, None, :]
+    events.copy_(torch.where(sel[:, :, None, :], upd[:, None, :, :], events))
+    nev.copy_(torch.where(any_c, nev + 1, nev))
+
+    # middle commit: covered/remref advance + rescan positioning
+    covered = torch.where(mid_c, covered + pend_exlen - md_in_f, covered)
+    remref = torch.where(mid_c, remref - pend_exlen, remref)
+    pivc = torch.clamp(pend_iv, 0, NIV - 1).long()
+    piv_len = iv_epos[pivc] - iv_spos[pivc] + 1
+    # right: rspos = iv_spos[pend]-1, exlen = len(pend), i = pend+1
+    # (extend.py:421-428); left: exlen = 0, i = pend-1 (:545-547)
+    xpos = torch.where(mid_c & ~is_left, iv_spos[pivc] - 1, xpos)
+    exlen = torch.where(mid_c & ~is_left, piv_len,
+                        torch.where(mid_c & is_left, 0, exlen))
+    i_abs = torch.where(mid_c & ~is_left, pend_iv + 1,
+                        torch.where(mid_c & is_left, pend_iv - 1, i_abs))
+    stat = torch.where(mid_c, WK_SCAN,
+                       torch.where(tr_c | end_c | endnd_c, WK_DONE, stat))
+    return torch.stack([i_abs, xpos, exlen, covered, first, stat, pend_iv,
+                        pend_xpos, pend_exlen, pend_cov, pend_rr, remref])
+
 
 # --------------------------------------------------------------------------
 # the interval scan of a wave

@@ -10,10 +10,11 @@ both DPs as an anti-diagonal wavefront over a whole [B, I] batch (scan twins
     the reference's roll-based wavefront (diagonal k holds cells (i, k-i)).
     They run on any device; the CPU tests hold them against the JAX scan
     twins and the Pallas kernels in interpret mode.
-  * ``xdrop_batch`` / ``edit_sc_batch``: the wrappers.  A CPU tensor goes
+  * ``xdrop_rows`` / ``edit_sc_batch``: the wrappers.  A CPU tensor goes
     through the plain version; a CUDA tensor launches the hand-written
     kernel in ``csrc/align_kernels.cu`` (or raises).  There is no fallback
-    from the kernel to the plain version.
+    from the kernel to the plain version.  ``xdrop_batch`` splits
+    ``xdrop_rows``' [B, 3] rows into columns.
 
 Inputs: s, t int8 [B, L] (L <= I, rows zero-padded), n, m int32 [B] with
 n, m <= L.  All arithmetic is int32, as in the reference (x64 is off there).
@@ -264,16 +265,23 @@ def xdrop_scan(s: torch.Tensor, t: torch.Tensor, n: torch.Tensor,
 # wrappers: plain version on the CPU, the CUDA kernel on the card
 # --------------------------------------------------------------------------
 
+def xdrop_rows(s, t, n, m, *, w: int, mat: int, mis: int, ind: int,
+               xd: int, I: int = 128):
+    """(best_score, on_s, on_t) as the rows of one int32 [B, 3] tensor;
+    CUDA tensors run the ``xdrop`` kernel of csrc/align_kernels.cu, whose
+    own output this is."""
+    if not s.is_cuda:
+        return torch.stack(xdrop_scan(s, t, n, m, w=w, mat=mat, mis=mis,
+                                      ind=ind, xd=xd, I=I), dim=1)
+    return _ext.launch("xdrop", s, t, n, m, None, 3, I,
+                       (w, mat, mis, ind, xd))
+
+
 def xdrop_batch(s, t, n, m, *, w: int, mat: int, mis: int, ind: int,
                 xd: int, I: int = 128):
-    """(best_score, on_s, on_t) int32 [B]; CUDA tensors run the
-    ``xdrop`` kernel of csrc/align_kernels.cu."""
-    if not s.is_cuda:
-        return xdrop_scan(s, t, n, m, w=w, mat=mat, mis=mis, ind=ind, xd=xd,
-                          I=I)
-    out = _ext.launch("xdrop", s, t, n, m, None, 3, I,
-                      (w, mat, mis, ind, xd))
-    return out[:, 0], out[:, 1], out[:, 2]
+    """(best_score, on_s, on_t) int32 [B]: ``xdrop_rows``' columns."""
+    return xdrop_rows(s, t, n, m, w=w, mat=mat, mis=mis, ind=ind, xd=xd,
+                      I=I).unbind(1)
 
 
 def edit_sc_batch(s, t, n, m, *, w: int, max_ed: int, max_sc: int,

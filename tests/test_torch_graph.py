@@ -68,7 +68,8 @@ LIFT_SITES = {
 # kernel launches of one step (PERF.md's per-step counts)
 PER_STEP = {"xdrop": 5, "edit_end": 4, "one_side": 1, "edit_sc": 0,
             "chain_dp": 1, "mr_pair_fold": 2, "walk_fold": 4, "walk_scan": 4,
-            "tiny_dp": 5, "chain_cells": 1, "extract_kbest": 1}
+            "tiny_dp": 5, "chain_cells": 1, "extract_kbest": 1,
+            "walk_init": 1, "walk_pool": 4, "walk_commit": 4}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -140,7 +141,7 @@ def _kernel_args_ok(args):
 
 
 def _stubs(calls):
-    """The eleven kernel wrappers as they are called from the step, each
+    """The fourteen kernel wrappers as they are called from the step, each
     returning zeros of its output shape and counting its calls; all but
     the four DP kernels' check the arguments their kernels would get."""
     def out(name, s, k):
@@ -209,10 +210,62 @@ def _stubs(calls):
         calls["edit_end"] += 1
         return torch.zeros((s.shape[0], 2), dtype=torch.int32)
 
+    def xdrop_rows(s, *a, **kw):
+        calls["xdrop"] += 1
+        return torch.zeros((s.shape[0], 3), dtype=torch.int32)
+
+    def walk_init(act4, pos4, len4, aiv4, row4, qs04, fiv, riv, iv_epos,
+                  iv_tids, trans_start, t2s_off, *, EW, WPP, **kw):
+        calls["walk_init"] += 1
+        N, STW = fiv.shape[0], min(iv_tids.shape[1], twalk.STW)
+        i32, b8 = torch.int32, torch.bool
+        out = twalk.WalkInit(
+            inv=torch.zeros((WPP,), dtype=i32),
+            n_act=torch.zeros((), dtype=i32),
+            over=torch.zeros((4 * N,), dtype=b8),
+            act=torch.zeros((STW, WPP), dtype=b8),
+            p_live=torch.zeros((WPP,), dtype=b8),
+            over_tid=torch.zeros((WPP,), dtype=b8),
+            ws=torch.zeros((len(twalk.WS_KEYS), STW, WPP), dtype=i32),
+            slot=torch.zeros((len(twalk.SLOT_KEYS), STW, WPP), dtype=i32),
+            lane=torch.zeros((len(twalk.LANE_KEYS), WPP), dtype=i32),
+            prow=torch.zeros((len(twalk.PROW_KEYS), WPP), dtype=i32),
+            events=torch.zeros((STW, EW, twalk.EV_NF, WPP), dtype=i32),
+            nev=torch.zeros((STW, WPP), dtype=i32))
+        tiles = torch.zeros((twalk.wave_tiles(N),), dtype=i32)
+        _kernel_args_ok(twalk.walk_init_args(
+            act4, pos4, len4, aiv4, row4, qs04, fiv, riv, iv_epos, iv_tids,
+            trans_start, t2s_off, out, tiles))
+        return out
+
+    def walk_pool(ws, lane, prow, seqsf, genome, *, MIDP, ENDP, I=128,
+                  **kw):
+        calls["walk_pool"] += 1
+        _, STW, WPP = ws.shape
+        i32, i8 = torch.int32, torch.int8
+        out = twalk.WalkPool(
+            m_win=torch.zeros((2, MIDP, I - 1), dtype=i8),
+            m_rows=torch.zeros((len(twalk.POOL_ROWS), MIDP), dtype=i32),
+            m_tiny=torch.zeros((MIDP,), dtype=torch.bool),
+            e_win=torch.zeros((2, ENDP, I - 1), dtype=i8),
+            e_rows=torch.zeros((len(twalk.POOL_ROWS), ENDP), dtype=i32),
+            n=torch.zeros((2,), dtype=i32),
+            maps=torch.zeros((2, STW, WPP), dtype=i32))
+        tiles = torch.zeros((2 * twalk.wave_tiles(STW * WPP),), dtype=i32)
+        _kernel_args_ok(twalk.walk_pool_args(ws, lane, prow, seqsf, genome,
+                                             out, tiles))
+        return out
+
+    def walk_commit(ws, *args, **kw):
+        calls["walk_commit"] += 1
+        out = torch.zeros_like(ws)
+        _kernel_args_ok(twalk.walk_commit_args(ws, *args, out))
+        return out
+
     return {
         (tfull, "one_side_batch"): lambda s, *a, **kw: out("one_side", s, 1),
         (tfull, "xdrop_batch"): lambda s, *a, **kw: out("xdrop", s, 3),
-        (twalk, "xdrop_batch"): lambda s, *a, **kw: out("xdrop", s, 3),
+        (twalk, "xdrop_rows"): xdrop_rows,
         (twalk, "edit_end_rows"): edit_end_rows,
         (tchain, "chain_cells"): chain_cells,
         (tchain, "chain_dp"): chain_dp,
@@ -220,6 +273,9 @@ def _stubs(calls):
         (tfull, "mr_pair_fold"): mr_pair_fold,
         (twalk, "walk_fold_lanes"): walk_fold_lanes,
         (twalk, "walk_scan"): walk_scan,
+        (twalk, "walk_init"): walk_init,
+        (twalk, "walk_pool"): walk_pool,
+        (twalk, "walk_commit"): walk_commit,
         (twalk, "tiny_dp"): tiny_dp,
         (tfull, "tiny_dp"): tiny_dp,
     }
@@ -252,11 +308,12 @@ def test_fused_step_never_waits_for_the_device(world, monkeypatch):
     indexing, every lifted scalar from a named site, and the kernels
     launched 5 (xdrop), 4 (edit_end), 1 (one_side), 1 (chain_cells), 1
     (chain_dp), 1 (extract_kbest), 2 (mr_pair_fold), 4 (walk_fold), 4
-    (walk_scan) and 5 (tiny_dp) times.
-    The step dispatches 6,849 aten ops with the kernels stubbed: 8,053
-    before chain_cells and extract_kbest, 8,062 before tiny_dp took its
-    pools' select of the fallback rows, 39,031 before the walk's
-    kernels."""
+    (walk_scan), 5 (tiny_dp), 1 (walk_init), 4 (walk_pool) and 4
+    (walk_commit) times.
+    The step dispatches 5,127 aten ops with the kernels stubbed: 6,849
+    before walk_init, walk_pool and walk_commit, 8,053 before chain_cells
+    and extract_kbest, 8,062 before tiny_dp took its pools' select of the
+    fallback rows, 39,031 before the walk's kernels."""
     blob, audit, calls = _audited_step(world, monkeypatch)
     assert tuple(blob.shape) == (BATCH, tfull.MRF + 1)
     assert not audit.syncing, Counter(audit.syncing)
@@ -267,16 +324,20 @@ def test_fused_step_never_waits_for_the_device(world, monkeypatch):
     print(f"device_full_step at B = {BATCH}, kernels stubbed: {total} aten "
           f"ops per step; top {audit.ops.most_common(5)}; by innermost "
           f"span {audit.by_span.most_common()}")
-    assert total == 6_849
+    assert total == 5_127
 
 
 def test_walk_scan_and_fold_are_one_kernel_each(world, monkeypatch):
     """With the kernels stubbed, cm.walk_fold dispatches a handful of aten
     ops per family (its zero-filled output, the reshapes and the pool
-    overflow's or), and cm.walk_waves as many at twice the world's KSCAN:
-    the card path unrolls neither the fold's events nor the scan's steps.
-    The walk's two spans take under 3,000 ops (32,183 before the walk's
-    kernels)."""
+    overflow's or), and cm.walk_waves at most 17 a wave beside 31 for the
+    set-up and the lane defers (its wrappers' outputs and workspace, the
+    pools' unbinds),
+    as many at twice the world's KSCAN: the card path unrolls neither the
+    fold's events nor the scan's steps, and the waves' pools and commit
+    are kernels.  cm.walk_waves took 1,821 ops before walk_init, walk_pool
+    and walk_commit; the walk's two spans 32,183 before the walk's
+    kernels."""
     K = world.statics["KSCAN"]
     by_k = {}
     for kscan in (K, 2 * K):
@@ -287,9 +348,11 @@ def test_walk_scan_and_fold_are_one_kernel_each(world, monkeypatch):
     walk, fold = by_k[K]["cm.walk_waves"], by_k[K]["cm.walk_fold"]
     print(f"cm.walk_waves {walk}, cm.walk_fold {fold} aten ops per step")
     assert 0 < fold <= 4 * 16, fold
-    assert 0 < walk == by_k[2 * K]["cm.walk_waves"], \
+    assert 0 < walk <= 17 * world.statics["EW"] + 31, walk
+    assert walk == by_k[2 * K]["cm.walk_waves"], \
         (walk, by_k[2 * K]["cm.walk_waves"])
-    assert walk + fold < 3_000
+    assert calls["walk_init"] == 1
+    assert calls["walk_pool"] == calls["walk_commit"] == world.statics["EW"]
 
 
 def test_chain_dp_and_pair_steps_are_one_kernel_each(world, monkeypatch):
