@@ -77,10 +77,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      each bit-equal to its plain version there and timed, with its bound
      (the chain ends', the chain DP's, the fold's and the walk kernels'
      inputs too; each
-     walk kernel beside empty kernels on its grids, the [launch-floor]
+     walk kernel beside an empty kernel on its grid, the [launch-floor]
      line, and with the fallback rows of tiny_dp's pools and the fold's
-     live lanes per family; the extraction's rows by event count and by
-     the rank path they take, extract_paths);
+     live lanes per family; each wave kernel's device ms by kernel; the
+     extraction's rows by event count and by the rank path they take,
+     extract_paths);
   8. stage 2 of the gpu-full path on the card: the BSJ pairs of the
      phase-6 map (sorted as bench.py sorts them) through the port's
      ProcessCirc.run(device_ext=True) (speculate-and-select waves on the
@@ -313,6 +314,43 @@ def device_ms(fn, kernel, iters, warm_s=0.2, primer=512, rest=False):
     if rest:
         ev = [e for e in dev if "spin_kernel" not in e.name]
     return sum(e.time_range.elapsed_us() for e in ev) / n_kern / 1e3
+
+
+def device_split(fn, iters=50, primer=512, holds="walk_"):
+    """{kernel: mean device ms per call} over iters calls of fn, from the
+    profiler's device records of the kernels whose symbol holds ``holds``:
+    one call's records in launch order, a kernel that a call launches more
+    than once named by its turn (``walk_compact_kernel#1``, ``#2``).  A
+    session that lost a record (the tracer drops a later session's first
+    records; ``device_ms``) is traced again, up to 3 times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cuda_ms(fn, 1, 0.2)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(primer):
+                torch.cuda._sleep(1)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and holds in e.name),
+                    key=lambda e: e.time_range.start)
+        if ev and len(ev) % iters == 0:
+            break
+    check(ev and len(ev) % iters == 0, f"the profiler kept {len(ev)} "
+          f"records of {iters} calls, three times")
+    k = len(ev) // iters
+    names = [e.name.replace("(anonymous namespace)::", "").split("(")[0]
+             for e in ev[:k]]
+    check(all(e.name == ev[i % k].name for i, e in enumerate(ev)),
+          f"the calls' records differ in order: {names}")
+    labels = [n if names.count(n) == 1 else f"{n}#{names[:i + 1].count(n)}"
+              for i, n in enumerate(names)]
+    return {lab: sum(e.time_range.elapsed_us() for e in ev[i::k])
+            / iters / 1e3 for i, lab in enumerate(labels)}
 
 
 # --------------------------------------------------------------------------
@@ -1219,10 +1257,16 @@ def phase_chain_fold(device, seed=11):
 # walk_scan (STW, WPP, KSCAN) at the main path's 8 x 6,144 and ragged
 # shapes; walk_init (N, WPP, active share, ST, left4) at the main path's
 # 65,536 pair slots into 6,144 lanes below and past WPP, ragged, ST below
-# STW, no active slot; walk_pool (STW, WPP, MIDP, ENDP, band) at the main
-# path's pools, pools that overflow, dead rows past every leader, one
-# slot, a wide band; walk_commit (STW, WPP, MIDP, ENDP, EW, band) the same
-# and EW 1 and 7
+# STW, no active slot, at an 8,192-pair step's 131,072 pair slots into
+# 12,288 lanes (four 32-flag groups a thread), a 16,384-pair step's
+# 262,144 into 24,576 (eight, every group's mask in registers) and
+# 300,000 (ten: two groups read again); walk_pool (STW, WPP, MIDP, ENDP,
+# band) at the main path's pools, pools that overflow, dead rows past
+# every leader, one slot, a wide band, an 8,192-pair step's 12,288 lanes
+# and 30,000 ragged lanes (one and two lanes a thread), and 200,000 lanes
+# that outgrow shared memory (13 lanes a thread, 10 kept; END rows past
+# the CTAs' tables, live and dead); walk_commit (STW, WPP, MIDP, ENDP,
+# EW, band) the same and EW 1 and 7
 WALK_SWEEP = {
     "walk_fold": ((4096, 8, 6144, 0, True), (4096, 8, 6144, 1, True),
                   (4096, 8, 6144, 2, False), (4096, 8, 6144, 3, False),
@@ -1239,10 +1283,14 @@ WALK_SWEEP = {
     "walk_init": ((65536, 6144, 0.02, 16, 0), (65536, 6144, 0.1, 16, 0),
                   (64, 40, 0.5, 16, 1), (200, 512, 0.9, 16, 2),
                   (33, 7, 0.3, 5, 0), (16, 100, 0.0, 3, 3),
-                  (64, 40, 0.5, 20, 1)),
+                  (64, 40, 0.5, 20, 1), (131072, 12288, 0.02, 16, 0),
+                  (131072, 12288, 0.1, 16, 0), (262144, 24576, 0.02, 16, 0),
+                  (300000, 24576, 0.1, 16, 1)),
     "walk_pool": ((8, 6144, 512, 1024, 3), (8, 6144, 64, 96, 3),
                   (8, 40, 512, 300, 3), (3, 50, 8, 4, 0), (1, 33, 5, 70, 1),
-                  (8, 300, 600, 10, 14)),
+                  (8, 300, 600, 10, 14), (8, 12288, 1024, 2048, 3),
+                  (5, 30000, 64, 96, 3), (8, 200000, 4096, 60000, 3),
+                  (5, 200000, 64, 300000, 3)),
     "walk_commit": ((8, 6144, 512, 1024, 4, 3), (8, 6144, 64, 96, 4, 3),
                     (8, 60, 16, 16, 4, 3), (3, 50, 8, 4, 1, 0),
                     (8, 200, 64, 128, 7, 5), (2, 33, 5, 70, 2, 1)),
@@ -1859,10 +1907,9 @@ def recording_tensor_kernels(store):
     def wrap(name, fn):
         def rec(*args, **kw):
             key = (name, rows(name, args, kw))
-            if key not in store:        # (the wrapper makes its workspace)
+            if key not in store:
                 store[key] = dict(args=[a.clone() for a in args],
-                                  kw={k: v for k, v in kw.items()
-                                      if k != "tiles"}, count=0)
+                                  kw=dict(kw), count=0)
             store[key]["count"] += 1
             return fn(*args, **kw)
         return rec
@@ -1881,38 +1928,36 @@ WALK_EMPTY = {"walk_fold": 0, "tiny_dp": 1, "walk_scan": 2}
 # takes
 WAVE_EMPTY = {"walk_init": 0, "walk_pool": 1, "walk_commit": 2}
 # the device record that times a wave kernel, and whether its other
-# records count too (walk_init and walk_pool launch a compaction before it)
-WAVE_TIMED = {"walk_init": ("walk_init_kernel", True),
-              "walk_pool": ("walk_pool_kernel", True),
+# records count too
+WAVE_TIMED = {"walk_init": ("walk_init_kernel", False),
+              "walk_pool": ("walk_pool_kernel", False),
               "walk_commit": ("walk_commit_kernel", False)}
 
 
 def wave_floor_ms(name, args, kw, iters=50):
-    """Device ms of empty kernels launched on the grids that the wave
-    kernel ``name`` takes for these inputs (csrc/walk_wave.cu::
-    cm_wave_empty), summed over its grids: the launch's share of that
-    kernel's time."""
+    """Device ms of an empty kernel launched on the grid (blocks,
+    clusters, threads, dynamic shared memory) that the wave kernel
+    ``name`` takes for these inputs (csrc/walk_wave.cu::cm_wave_empty):
+    the launch's share of that kernel's time."""
     import ctypes
     import torch
     from circminer_tpu_torch.ops import _ext
     fn = _ext._load().cm_wave_empty
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    # the compaction's units and the last kernel's rows
-    units, rows = {
-        "walk_init": lambda: (args[6].shape[0], kw["WPP"]),
-        "walk_pool": lambda: (args[0].shape[1] * args[0].shape[2],
-                              kw["MIDP"] + kw["ENDP"]),
-        "walk_commit": lambda: (0, args[0].shape[1] * args[0].shape[2])}[
-            name]()
+    if name == "walk_init":          # (STW, WPP, N, MIDP, ENDP, W)
+        shapes = (0, kw["WPP"], args[6].shape[0], 0, 0, 0)
+    elif name == "walk_pool":
+        shapes = (args[0].shape[1], args[0].shape[2], 0, kw["MIDP"],
+                  kw["ENDP"], kw.get("I", 128) - 1)
+    else:
+        shapes = (args[0].shape[1], args[0].shape[2], 0, 0, 0, 0)
     stream = torch.cuda.current_stream().cuda_stream
-    grids = []
 
     def call():
-        grids.append(fn(WAVE_EMPTY[name], units, rows, stream))
-        check(grids[-1] > 0, f"the empty kernels on {name}'s grids failed "
-              f"to launch")
-    return device_ms(call, "wave_empty_kernel", iters) * grids[0]
+        check(fn(WAVE_EMPTY[name], *shapes, stream) == 1,
+              f"the empty kernel on {name}'s grid failed to launch")
+    return device_ms(call, "wave_empty_kernel", iters)
 
 
 def walk_floor_ms(name, args, kw, iters=50):
@@ -1973,7 +2018,8 @@ def time_tensor_kernels(store, where, iters=50):
     inputs, its device ms per launch (profiler), the plain version's ms
     (CUDA events) and its bound; for the walk's kernels the launch floor
     of their grid and what their inputs ask of them (``walk_shares``); for
-    the wave kernels the floor of their grids (``wave_floor_ms``)."""
+    the wave kernels the floor of their grid (``wave_floor_ms``) and their
+    device ms by kernel (``device_split``)."""
     res = {}
     for (name, rows), rec in sorted(store.items()):
         args, kw = rec["args"], rec["kw"]
@@ -1986,7 +2032,10 @@ def time_tensor_kernels(store, where, iters=50):
                  plain_ms=cuda_ms(plain, 3), bound_ms=bound_ms,
                  bound_by=bound_by, ops=ops)
         if name in WAVE_KERNELS:
-            r.update(floor_ms=wave_floor_ms(name, args, kw))
+            r.update(floor_ms=wave_floor_ms(name, args, kw),
+                     split=device_split(kern))
+            log(f"[main-shapes] {name}'s device ms by kernel at {rows} "
+                f"rows: {r['split']}")
         if name in WALK_KERNELS:
             shares = walk_shares(name, args)
             r.update(floor_ms=walk_floor_ms(name, args, kw), **shares)
@@ -2282,8 +2331,7 @@ AB_WALK = {"walk_fold": ((4096, 8, 6144, 0, True),),
            "walk_init": ((65536, 6144, 0.02, 16, 0),),
            "walk_pool": ((8, 6144, 512, 1024, 3),),
            "walk_commit": ((8, 6144, 512, 1024, 4, 3),)}
-# the outputs of each wave kernel (before walk_init's and walk_pool's
-# workspace of tile counts), and those it updates in place
+# the outputs of each wave kernel, and those it updates in place
 WAVE_OUTS = {"walk_init": ("inv", "n_act", "over", "act", "p_live",
                            "over_tid", "ws", "slot", "lane", "prow",
                            "events", "nev"),
@@ -2535,6 +2583,9 @@ def phase_ab(sources):
                 log(f"[ab] {os.path.basename(src)} {name} {tag}: "
                     f"{ms:.5f} ms" + (" with the pool's torch.where"
                                       if select else ""))
+                if name in WAVE_KERNELS:
+                    log(f"[ab] {os.path.basename(src)} {name} {tag}: device "
+                        f"ms by kernel {device_split(call)}")
     return {src: {name: {tag: sum(v) / len(v) for tag, v in per.items()}
                   for name, per in kern.items()}
             for src, kern in times.items()}

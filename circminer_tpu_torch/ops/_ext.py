@@ -79,12 +79,12 @@ KERNELS = {
         ("act4", "pos4", "len4", "aiv4", "row4", "qs04", "fiv", "riv",
          "iv_epos", "iv_tids", "trans_start", "t2s_off", "inv", "n_act",
          "over", "act", "p_live", "over_tid", "ws", "slot", "lane", "prow",
-         "events", "nev", "tiles")),
+         "events", "nev")),
     "walk_pool": Kernel(
         "cm_walk_pool", ("STW", "WPP", "RL", "G", "L", "band", "MIDP",
                          "ENDP", "W"),
         ("ws", "lane", "prow", "seqsf", "genome", "m_win", "m_rows",
-         "m_tiny", "e_win", "e_rows", "n", "maps", "tiles")),
+         "m_tiny", "e_win", "e_rows", "n", "maps")),
     "walk_commit": Kernel(
         "cm_walk_commit", ("STW", "WPP", "EW", "MIDP", "ENDP", "NIV", "mat",
                            "mis", "band", "max_ed", "max_sc"),

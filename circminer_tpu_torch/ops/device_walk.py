@@ -212,18 +212,6 @@ PROW_KEYS = ("row", "qs0")
 POOL_ROWS = ("n", "m", "inv")
 # a lane's code in a pool map: the leader's pool row (>= 0), or none
 MAP_NONE, MAP_OVER = -1, -2
-# units of a compaction tile (csrc/walk_wave.cu CT), whose counts the
-# kernels keep in an int32 workspace: walk_init's N words of four flags,
-# walk_pool's two pools of STW * WPP slots each
-WAVE_TILE = 1024
-
-
-def wave_tiles(units: int) -> int:
-    """The tiles of a compaction over ``units`` (each counts into one
-    int32 of the workspace)."""
-    return -(-units // WAVE_TILE)
-
-
 class WalkInit(NamedTuple):
     """The walk's lanes and carried state (``walk_init``)."""
     inv: torch.Tensor       # int32 [WPP], pool lane -> flat [4N] slot
@@ -312,7 +300,7 @@ def walk_init(act4, pos4, len4, aiv4, row4, qs04, fiv, riv, iv_epos,
     also lists, fiv / riv int32 [N]) packed in order into STW = min(ST, 8)
     slots, the scan state, the slot and lane constants and zeroed events.
     Returns a ``WalkInit``.  On a CPU tensor its plain version
-    (``_walk_init_plain``); on a CUDA tensor the ``walk_init`` kernels
+    (``_walk_init_plain``); on a CUDA tensor the ``walk_init`` kernel
     (csrc/walk_wave.cu), or a raise."""
     kw = dict(left4=tuple(left4), band=band, EW=EW, WPP=WPP)
     if not act4.is_cuda:
@@ -324,11 +312,10 @@ def walk_init(act4, pos4, len4, aiv4, row4, qs04, fiv, riv, iv_epos,
     if N == 0 or NIV == 0 or ST == 0:
         raise ValueError(f"walk_init takes N, NIV and ST above 0, got {N}, "
                          f"{NIV}, {ST}")
-    if act4.data_ptr() % 4:           # the kernel reads words of flags
+    if act4.data_ptr() % 16:          # the kernel reads 16 flags at a time
         act4 = act4.clone()
     dev = act4.device
     i32, b8 = _i32, torch.bool
-    tiles = torch.empty((wave_tiles(N),), dtype=i32, device=dev)
     out = WalkInit(
         inv=torch.empty((WPP,), dtype=i32, device=dev),
         n_act=torch.empty((), dtype=i32, device=dev),
@@ -346,15 +333,15 @@ def walk_init(act4, pos4, len4, aiv4, row4, qs04, fiv, riv, iv_epos,
     _ext.launch_tensors(
         "walk_init", walk_init_args(act4, pos4, len4, aiv4, row4, qs04, fiv,
                                     riv, iv_epos, iv_tids, trans_start,
-                                    t2s_off, out, tiles),
+                                    t2s_off, out),
         (N, WPP, STW_, ST, iv_epos.shape[0], trans_start.shape[0], EW, band,
          sum(1 << f for f, left in enumerate(left4) if left)))
     return out
 
 
 def walk_init_args(act4, pos4, len4, aiv4, row4, qs04, fiv, riv, iv_epos,
-                   iv_tids, trans_start, t2s_off, out, tiles):
-    """The (tensor, dtype, shape) arguments of the ``walk_init`` kernels,
+                   iv_tids, trans_start, t2s_off, out):
+    """The (tensor, dtype, shape) arguments of the ``walk_init`` kernel,
     in their order; ``out`` a ``WalkInit``."""
     N = fiv.shape[0]
     STW_, EW, WPP = out.events.shape[0], out.events.shape[1], \
@@ -374,7 +361,7 @@ def walk_init_args(act4, pos4, len4, aiv4, row4, qs04, fiv, riv, iv_epos,
         (out.lane, i32, (len(LANE_KEYS), WPP)),
         (out.prow, i32, (len(PROW_KEYS), WPP)),
         (out.events, i32, (STW_, EW, EV_NF, WPP)),
-        (out.nev, i32, (STW_, WPP)), (tiles, i32, (wave_tiles(N),))]
+        (out.nev, i32, (STW_, WPP))]
 
 
 def _walk_init_plain(act4, pos4, len4, aiv4, row4, qs04, fiv, riv, iv_epos,
@@ -468,7 +455,7 @@ def walk_pool(ws, lane, prow, seqsf, genome, *, L: int, band: int,
     windows of I - 1 bases gathered.  lane int32 [len(LANE_KEYS), WPP],
     prow int32 [len(PROW_KEYS), WPP].  Returns a ``WalkPool``.  On a CPU
     tensor its plain version (``_walk_pool_plain``); on a CUDA tensor the
-    ``walk_pool`` kernels (csrc/walk_wave.cu), or a raise."""
+    ``walk_pool`` kernel (csrc/walk_wave.cu), or a raise."""
     kw = dict(L=L, band=band, MIDP=MIDP, ENDP=ENDP, I=I)
     if not ws.is_cuda:
         return _walk_pool_plain(ws, lane, prow, seqsf, genome, **kw)
@@ -476,10 +463,8 @@ def walk_pool(ws, lane, prow, seqsf, genome, *, L: int, band: int,
     if STW_ > STW or STW_ * WPP == 0 or min(MIDP, ENDP) <= 0:
         raise ValueError(f"walk_pool takes 1-{STW} slots of lanes and pools "
                          f"of rows, got {STW_} x {WPP} into {MIDP} / {ENDP}")
-    dev = ws.device
     W = I - 1
-    tiles = torch.empty((2 * wave_tiles(STW_ * WPP),), dtype=_i32,
-                        device=dev)
+    dev = ws.device
     out = WalkPool(
         m_win=torch.empty((2, MIDP, W), dtype=torch.int8, device=dev),
         m_rows=torch.empty((len(POOL_ROWS), MIDP), dtype=_i32, device=dev),
@@ -489,14 +474,13 @@ def walk_pool(ws, lane, prow, seqsf, genome, *, L: int, band: int,
         n=torch.empty((2,), dtype=_i32, device=dev),
         maps=torch.empty((2, STW_, WPP), dtype=_i32, device=dev))
     _ext.launch_tensors(
-        "walk_pool", walk_pool_args(ws, lane, prow, seqsf, genome, out,
-                                    tiles),
+        "walk_pool", walk_pool_args(ws, lane, prow, seqsf, genome, out),
         (STW_, WPP, seqsf.shape[0], genome.shape[0], L, band, MIDP, ENDP, W))
     return out
 
 
-def walk_pool_args(ws, lane, prow, seqsf, genome, out, tiles):
-    """The (tensor, dtype, shape) arguments of the ``walk_pool`` kernels, in
+def walk_pool_args(ws, lane, prow, seqsf, genome, out):
+    """The (tensor, dtype, shape) arguments of the ``walk_pool`` kernel, in
     their order; ``out`` a ``WalkPool``."""
     _, STW_, WPP = ws.shape
     _, MIDP, W = out.m_win.shape
@@ -510,8 +494,7 @@ def walk_pool_args(ws, lane, prow, seqsf, genome, out, tiles):
             (out.m_rows, i32, (len(POOL_ROWS), MIDP)),
             (out.m_tiny, torch.bool, (MIDP,)), (out.e_win, i8, (2, ENDP, W)),
             (out.e_rows, i32, (len(POOL_ROWS), ENDP)), (out.n, i32, (2,)),
-            (out.maps, i32, (2, STW_, WPP)),
-            (tiles, i32, (2 * wave_tiles(STW_ * WPP),))]
+            (out.maps, i32, (2, STW_, WPP))]
 
 
 def _pool_map(lead, inv, n, over):
