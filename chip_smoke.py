@@ -35,7 +35,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      rows, scores at and past the other cells' key 2^29, rows of exactly
      0, 1, 31, 32, 33 and iters + 1 event cells, more than 64 picks, a
      row of 15,000 cells whose walks read device memory), eagerly and
-     replayed from a CUDA graph; and chain_dp timed
+     replayed from a CUDA graph; phase 2's extend kernels (extend_core
+     on phase 2's families, extend_leftover on the leftover extends, and
+     is_left_chain) bit-equal to their plain versions over EXTEND_SWEEP
+     (chr21's main shapes, bounds at I32MAX, 0, INT32_MIN and at the
+     gate, positions near both int32 ends, lengths <= 0, no, some and
+     every lane held by the walk engine; chains separated, touching and
+     interleaved, NL 1-40), eagerly and replayed from a CUDA graph; and
+     chain_dp timed
      beside its
      plain version and bound at gpu-chain's S = 128 and 500 buckets
      (CHAIN_BUCKETS, which no chr21 read fills);
@@ -57,11 +64,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      batch; deferred reads replayed on the host) on the same reads: equal
      to native, with the xdrop, one_side, edit_end, chain_cells, chain_dp,
      extract_kbest, mr_pair_fold, walk_fold, walk_scan, tiny_dp,
-     walk_init, walk_pool and walk_commit kernels each launched on that
-     run, counted per replay (replays times the launches the capture
-     recorded; chain_cells, chain_dp, extract_kbest and walk_init once,
-     mr_pair_fold twice, walk_fold, walk_scan, walk_pool and walk_commit
-     four times, tiny_dp five times per replay); reported:
+     walk_init, walk_pool, walk_commit, extend_core, extend_leftover and
+     is_left_chain kernels each launched on that run, counted per replay
+     (replays times the launches the capture recorded; chain_cells,
+     chain_dp, extract_kbest, walk_init, extend_leftover and
+     is_left_chain once, mr_pair_fold twice, walk_fold, walk_scan,
+     walk_pool, walk_commit and extend_core four times, tiny_dp five
+     times per replay); reported:
      pairs/s, reads deferred
      and their causes, and the device-busy share and per-stage device
      time (the cm.* spans) of one torch.profiler run of a map of the
@@ -75,8 +84,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      step, run eagerly, with the
      kernels' inputs recorded: launches per step and rows of each kernel,
      each bit-equal to its plain version there and timed, with its bound
-     (the chain ends', the chain DP's, the fold's and the walk kernels'
-     inputs too; each
+     (the chain ends', the chain DP's, the fold's, the walk kernels' and
+     the extend kernels' inputs too; each
      walk kernel beside an empty kernel on its grid, the [launch-floor]
      line, and with the fallback rows of tiny_dp's pools and the fold's
      live lanes per family; each wave kernel's device ms by kernel; the
@@ -156,10 +165,12 @@ in phase 8, each counted from the end of its warm-up; launches_contigs in phase 
 gpu-full map and stage 2, counted so too;
 launches_mesh in phase 14's world-1 steps; ms, plain_ms, bound_ms at
 B = 1024 for the DP kernels, at the main path's recorded inputs for
-chain_cells, chain_dp, extract_kbest, mr_pair_fold and the walk's six
+chain_cells, chain_dp, extract_kbest, mr_pair_fold, the walk's six
 kernels (tiny_dp's at its largest
-pool, phase 1's 4,096 rows); main_ms per launch at the row counts of the
-main path; chain_dp's buckets at CHAIN_BUCKETS).
+pool, phase 1's 4,096 rows), extend_core (phase 2's pair slots),
+extend_leftover (the leftover's chains) and is_left_chain;
+main_ms per launch at the row counts of the main path; chain_dp's
+buckets at CHAIN_BUCKETS).
 """
 
 import contextlib
@@ -176,26 +187,33 @@ SEED_GENOME, SEED_READS = 20260817, 20260818
 KERNEL_SOURCE = "circminer_tpu_torch/csrc/align_kernels.cu"
 WALK_SOURCE = "circminer_tpu_torch/csrc/walk.cu"
 WAVE_SOURCE = "circminer_tpu_torch/csrc/walk_wave.cu"
+EXTEND_SOURCE = "circminer_tpu_torch/csrc/extend.cu"
 SOURCES = {"chain_dp": "circminer_tpu_torch/csrc/chain_dp.cu",
            "mr_pair_fold": "circminer_tpu_torch/csrc/mr_fold.cu",
            "walk_fold": WALK_SOURCE, "tiny_dp": WALK_SOURCE,
            "walk_scan": WALK_SOURCE, "walk_init": WAVE_SOURCE,
            "walk_pool": WAVE_SOURCE, "walk_commit": WAVE_SOURCE,
            "chain_cells": "circminer_tpu_torch/csrc/chain_cells.cu",
-           "extract_kbest": "circminer_tpu_torch/csrc/extract_kbest.cu"}
+           "extract_kbest": "circminer_tpu_torch/csrc/extract_kbest.cu",
+           "extend_core": EXTEND_SOURCE, "extend_leftover": EXTEND_SOURCE,
+           "is_left_chain": EXTEND_SOURCE}
 WALK_KERNELS = ("walk_fold", "tiny_dp", "walk_scan")
 # the walk's lane set-up and wave body (csrc/walk_wave.cu)
 WAVE_KERNELS = ("walk_init", "walk_pool", "walk_commit")
 # the chain stage's two ends: the prelude's cells and the k-best extraction
 END_KERNELS = ("chain_cells", "extract_kbest")
+# phase 2's extend wrap-up, the same wrap-up on the leftover extends, and
+# phase 2's chain-order walk
+EXTEND_KERNELS = ("extend_core", "extend_leftover", "is_left_chain")
 DP_KERNELS = ("xdrop", "edit_sc", "edit_end", "one_side")
 # in the gpu-full map
 FULL_KERNELS = ("xdrop", "one_side", "edit_end", "chain_dp", "mr_pair_fold",
-                *WALK_KERNELS, *WAVE_KERNELS, *END_KERNELS)
+                *WALK_KERNELS, *WAVE_KERNELS, *END_KERNELS, *EXTEND_KERNELS)
 # launches of one gpu-full step (and so of one replay)
 PER_STEP = {"chain_dp": 1, "mr_pair_fold": 2, "walk_fold": 4, "walk_scan": 4,
             "tiny_dp": 5, "chain_cells": 1, "extract_kbest": 1,
-            "walk_init": 1, "walk_pool": 4, "walk_commit": 4}
+            "walk_init": 1, "walk_pool": 4, "walk_commit": 4,
+            "extend_core": 4, "extend_leftover": 1, "is_left_chain": 1}
 # the keys of every line of the reference bench (bench.py:329-343)
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "executor",
               "backend", "n_pairs", "genome_len", "events", "true_events",
@@ -224,6 +242,12 @@ REPLACES = {
     "chain_cells": "circminer_tpu/ops/chain.py:355",
     # extract_kbest_device_staged: lax.sort :84, pick_body :144 / :158
     "extract_kbest": "circminer_tpu/ops/device_finish.py:58",
+    # _extend_core (flat :327), called by run_side (:1060-1085)
+    "extend_core": "circminer_tpu/ops/device_full.py:214",
+    # device_full_finish's two _extend_core_flat calls (:1353-1370)
+    "extend_leftover": "circminer_tpu/ops/device_full.py:1353",
+    # _is_left_chain's fori_loop (:845), called at :993
+    "is_left_chain": "circminer_tpu/ops/device_full.py:801",
 }
 
 
@@ -1142,6 +1166,116 @@ def extract_kbest_inputs(rng, R, NL, S, *, iters=48, C=7, k=5):
             dict(k=k, C=C, iters=iters))
 
 
+def _dp_fields(rng, shape):
+    """An end / genomic DP's (ed, sclen, indel, score), numpy int32: ed
+    from -1 past max_ed 4, sclen past max_sc 7 (and at length - sclen =
+    sclen for short lengths), scores from a narrow window (ties)."""
+    import numpy as np
+    return [rng.integers(lo, hi, size=shape).astype(np.int32)
+            for lo, hi in ((-1, 7), (0, 10), (-3, 4), (-4, 4))]
+
+
+def _positions(rng, shape, lo=1000, hi=1100):
+    """Positions from a narrow window, with a tenth each near I32MAX (pos
+    + length wraps), near 0 and near INT32_MIN."""
+    import numpy as np
+    pick = rng.random(shape)
+    near = rng.integers(0, 40, size=shape)
+    return np.select([pick < 0.1, pick < 0.2, pick < 0.3],
+                     [I32MAX - near, near - 20, -I32MAX - 1 + near],
+                     rng.integers(lo, hi, size=shape)).astype(np.int32)
+
+
+def extend_core_inputs(rng, B, P, *, fam=0, left=True, active=0.5):
+    """Adversarial inputs of one phase-2 extend family (``extend_core``,
+    numpy, over [B, 2, P] slots): positions near I32MAX, 0 and INT32_MIN,
+    lengths <= 0 for a tenth, bounds at I32MAX, 0, INT32_MIN and exactly
+    at the gate (pos = bound + length left, pos + length = bound right),
+    exon lengths at the covered edge, the walk and genomic DPs with ed,
+    sclen, position and score ties against each other and the fold's best,
+    and ``active`` the share of lanes the walk engine holds (its fold rows
+    random everywhere: the extend reads them only there)."""
+    import numpy as np
+    shp = (B, 2, P)
+    N = B * 2 * P
+
+    def r(lo, hi, shape=shp):
+        return rng.integers(lo, hi, size=shape).astype(np.int32)
+
+    def coin(p, shape=shp):
+        return rng.random(shape) < p
+    length = np.where(coin(0.1), r(-3, 1), r(1, 40))
+    pos = _positions(rng, shp)
+    gate = _wrap32(pos.astype(np.int64) + (-length if left else length))
+    pick = rng.random(shp)
+    bound = np.select([pick < 0.15, pick < 0.3, pick < 0.4, pick < 0.6],
+                      [I32MAX, 0, -I32MAX - 1, gate],
+                      _wrap32(gate.astype(np.int64) + r(-3, 4))).astype(
+                          np.int32)
+    iv = np.where(coin(0.2), -1, r(0, 50))
+    exon_len = np.where(coin(0.2), 0, length + r(-3, 5))
+    covered = ((iv >= 0) & (exon_len >= length)) ^ coin(0.1)
+    fold = np.stack([_wrap32(pos.reshape(-1).astype(np.int64)
+                             + r(-5, 6, N)), r(-1, 7, N), r(0, 10, N),
+                     r(-3, 4, N), r(-2, 45, N), r(-4, 4, N),
+                     coin(0.3, N).astype(np.int32),
+                     coin(0.2, N).astype(np.int32)])
+    return ((pos, length, r(-2, 7), bound, coin(0.7), iv,
+             exon_len.astype(np.int32), covered, coin(0.4), coin(0.85),
+             coin(0.85), *_dp_fields(rng, shp), *_dp_fields(rng, shp),
+             fold, coin(0.1, 4 * N), coin(active, (4, *shp))),
+            dict(fam=fam, left=left, max_sc=7, band=3))
+
+
+def extend_leftover_inputs(rng, B, KB1, NL):
+    """Adversarial inputs of the leftover extends (``extend_leftover``,
+    numpy, over [B, 4, KB1] chains): pos_l (rp4[..., 0]) and pos_r near
+    0, INT32_MIN and I32MAX (the bounds 0 and I32MAX at and past the
+    gate), remain_beg (qp4[..., 0]) and remain_end <= 0 for a tenth,
+    est_mid past max_ed 4 (negative ed_th), the DP fields' ties."""
+    import numpy as np
+    shp = (B, 4, KB1)
+
+    def r(lo, hi, shape=shp):
+        return rng.integers(lo, hi, size=shape).astype(np.int32)
+
+    def remain():
+        return np.where(rng.random(shp) < 0.1, r(-3, 1), r(1, 40))
+    rp4 = r(0, 10 ** 6, (*shp, NL))
+    rp4[..., 0] = _positions(rng, shp, 0, 60)
+    qp4 = r(0, 200, (*shp, NL))
+    qp4[..., 0] = remain()
+    return ((rp4, qp4, _positions(rng, shp), remain(), r(0, 7),
+             rng.random(shp) < 0.85, rng.random(shp) < 0.85,
+             *_dp_fields(rng, (*shp, 2, 2))), dict(max_ed=4, max_sc=7, band=3))
+
+
+def is_left_chain_inputs(rng, B, KB1, NL, P, *, k=20):
+    """Adversarial inputs of the chain-order walk (``is_left_chain``,
+    numpy): a read's chains start near one base (a few near I32MAX, where
+    an end + k - 1 wraps), with fragment gaps from k - 3 to 3k, so that a
+    pair's two chains are separated, touch (one's end one before the
+    other's start), share an end base or interleave; chain lengths 0 to
+    NL; query offsets around the read length (both in, one out); any
+    chain of each row picked by pi / pj."""
+    import numpy as np
+
+    def r(lo, hi, shape):
+        return rng.integers(lo, hi, size=shape).astype(np.int64)
+    base = np.where(rng.random(B) < 0.05, I32MAX - 40 * k * NL,
+                    r(1000, 10 ** 7, B))
+    start = base[:, None, None] + r(-4 * k, 4 * k, (B, 4, KB1))
+    gaps = r(k - 3, 3 * k, (B, 4, KB1, NL))
+    gaps[..., 0] = 0
+    rp4 = start[..., None] + np.cumsum(gaps, axis=-1)
+    qp4 = np.cumsum(r(0, k + 4, (B, 4, KB1, NL)), axis=-1)
+    lens4 = r(max(1, k * NL // 2), k * NL + 5, (B, 4))
+    return ((_wrap32(rp4), qp4.astype(np.int32),
+             r(0, NL + 1, (B, 4, KB1)).astype(np.int32),
+             lens4.astype(np.int32), r(0, KB1, (B, 2, P)).astype(np.int32),
+             r(0, KB1, (B, 2, P)).astype(np.int32)), dict(k=k))
+
+
 # the chain DP's adversarial sweep, (S, NL, P, rows): the gpu-chain
 # buckets' S (16, 128, 500), lists of reads up to 300 bases at k = 20 (NL
 # up to 15), P = seg_pad 16 (registers), 3 and 20 (the scan from memory)
@@ -1160,10 +1294,10 @@ FOLD_STEP_OPS = 100
 
 def tensor_kernel_calls(name, args, kw):
     """(kernel wrapper call, plain version call) of a ``launch_tensors``
-    kernel (chain_dp, mr_pair_fold, one of WALK_KERNELS, WAVE_KERNELS or
-    END_KERNELS) on these arguments, each returning a tuple of tensors
-    (walk_commit's: the events and counts it updates in place on copies of
-    its inputs', then the new state)."""
+    kernel (chain_dp, mr_pair_fold, one of WALK_KERNELS, WAVE_KERNELS,
+    END_KERNELS or EXTEND_KERNELS) on these arguments, each returning a
+    tuple of tensors (walk_commit's: the events and counts it updates in
+    place on copies of its inputs', then the new state)."""
     from circminer_tpu_torch.ops import chain_device as cd
     from circminer_tpu_torch.ops import device_finish as fin
     from circminer_tpu_torch.ops import device_full as df
@@ -1178,9 +1312,13 @@ def tensor_kernel_calls(name, args, kw):
            "walk_scan": (dw.walk_scan, dw._walk_scan_plain),
            "walk_init": (dw.walk_init, dw._walk_init_plain),
            "walk_pool": (dw.walk_pool, dw._walk_pool_plain),
-           "walk_commit": (dw.walk_commit, dw._walk_commit_plain)}
+           "walk_commit": (dw.walk_commit, dw._walk_commit_plain),
+           "extend_core": (df.extend_core, df._extend_core_plain),
+           "extend_leftover": (df.extend_leftover,
+                               df._extend_leftover_plain),
+           "is_left_chain": (df.is_left_chain, df._is_left_chain_plain)}
     kern, plain = fns[name]
-    if name in WALK_KERNELS:                   # one tensor out
+    if name in (*WALK_KERNELS, "is_left_chain"):       # one tensor out
         return (lambda: (kern(*args, **kw),), lambda: (plain(*args, **kw),))
     if name == "walk_commit":
         def commit(fn):
@@ -1431,6 +1569,73 @@ def phase_chain_ends(device, seed=23):
         f"adversarial inputs: chain_cells_inputs, extract_kbest_inputs)")
 
 
+# phase 2's extend kernels' adversarial sweep: extend_core (B, P_MAX, fam,
+# left, share of engine lanes) at the main path's 4,096 x 2 x 8 slots for
+# every family with chr21's ~5% engine lanes, and at ragged shapes with no,
+# half and every lane held by the engine; extend_leftover (B, KB1, NL) at
+# chr21's 4,096 x 4 x 7 chains of NL = 6 and ragged; is_left_chain (B, KB1,
+# NL, P_MAX[, k]) at chr21's 4,096 x 2 x 8 slots, NL 1-40, k 20 and 3
+EXTEND_SWEEP = {
+    "extend_core": ((4096, 8, 0, True, 0.05), (4096, 8, 1, True, 0.05),
+                    (4096, 8, 2, False, 0.05), (4096, 8, 3, False, 0.05),
+                    (33, 3, 1, False, 0.5), (1, 1, 0, True, 1.0),
+                    (257, 8, 2, True, 0.9), (64, 16, 3, False, 0.0)),
+    "extend_leftover": ((4096, 7, 6), (33, 3, 1), (1, 1, 15),
+                        (300, 16, 15)),
+    "is_left_chain": ((4096, 7, 6, 8), (33, 3, 1, 2), (64, 7, 15, 8),
+                      (64, 5, 16, 3), (40, 4, 17, 8), (16, 7, 40, 5, 3),
+                      (1, 1, 1, 1), (257, 7, 2, 9, 3)),
+}
+
+
+def extend_case(name, spec, device, seed):
+    """(tensors on ``device``, kw) of one EXTEND_SWEEP case of ``name``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if name == "extend_core":
+        B, P, fam, left, active = spec
+        arrs, kw = extend_core_inputs(rng, B, P, fam=fam, left=left,
+                                      active=active)
+    elif name == "extend_leftover":
+        arrs, kw = extend_leftover_inputs(rng, *spec)
+    else:
+        B, KB1, NL, P, *k = spec
+        arrs, kw = is_left_chain_inputs(rng, B, KB1, NL, P, k=(k or [20])[0])
+    return [torch.from_numpy(np.require(a, requirements="C")).to(device)
+            for a in arrs], kw
+
+
+def phase_extend(device, seed=29):
+    """Phase 2 for phase 2's extend kernels (extend_core, extend_leftover,
+    is_left_chain): each bit-equal to its plain version on the
+    card over EXTEND_SWEEP, once eagerly and once replayed from a captured
+    CUDA graph (its outputs overwritten before the replay)."""
+    import torch
+    t0 = time.perf_counter()
+    n = 0
+    for name, specs in EXTEND_SWEEP.items():
+        for k, spec in enumerate(specs):
+            args, kw = extend_case(name, spec, device, seed + 43 * k)
+            kern, plain = tensor_kernel_calls(name, args, kw)
+            hold_outputs(name, kern, plain, f" ({spec})")
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = kern()
+            for x in out:
+                x.fill_(True if x.dtype == torch.bool else -7)
+            graph.replay()
+            hold_outputs(name, lambda: out, plain, f" ({spec}, replayed)")
+            n += 1
+    log(f"[kernels] extend_core (phase 2's families), extend_leftover "
+        f"(the leftover extends) and is_left_chain bit-equal to plain, "
+        f"eagerly and replayed from a CUDA graph, over {n} cases "
+        f"{EXTEND_SWEEP} ({time.perf_counter() - t0:.1f} s; adversarial "
+        f"inputs: "
+        f"extend_core_inputs, extend_leftover_inputs, "
+        f"is_left_chain_inputs)")
+
+
 # gpu-chain's occupancy buckets above S = 16 at their row chunks
 # (DeviceMappingPipeline._chunk_for) and the default config's NL = 15
 # (max_read_len 300, k 20): (S, rows)
@@ -1594,6 +1799,105 @@ def walk_work(name, args, kw):
     nbytes = 2 * ws.numel() * 4 + slot.numel() * 4 + lane.numel() * 4 \
         + 2 * iv_spos.numel() * 4 + t2s.numel()
     return nbytes, steps * SCAN_STEP_OPS
+
+
+# floors of the extend kernels' int32 operations: per extend of a slot
+# (extend_one's compares, selects and wrapped sums), per slot of the
+# chain-order walk (its gathers' index arithmetic, the ends and the overlap
+# test, without the walk's steps)
+EXT_EXTEND_OPS = 60
+EXT_CHAIN_OPS = 30
+
+
+def extend_work(name, args, kw):
+    """(bytes, int32 ops) that an extend kernel needs on these inputs, each
+    input the kernel reads read once and each output written once.
+    extend_core: every slot's scalars, flags and genomic DP, wx's walk
+    flag, the walk DP where it can be taken and the fold's eight rows and
+    overflow bit where the lane is active; its four outputs.
+    extend_leftover: per chain both sides' position, length, flag and
+    genomic DP, est_mid, and both sides' outputs.  is_left_chain:
+    ``left_chain_bytes``."""
+    import torch
+    if name == "extend_core":
+        (pos, _, _, _, has_tids, _, _, covered, wx, walk_inb, gen_inb,
+         *rest) = args
+        act = rest[10][kw["fam"]]
+        n = pos.numel()
+        walk_ok = covered & torch.where(wx, walk_inb, gen_inb)
+        n_wdp = int((wx & walk_ok & has_tids).sum())
+        n_act = int(act.sum())
+        nbytes = n * (6 * 4 + 5 + 4 * 4) + int(wx.sum()) + n_wdp * 16 \
+            + n_act * (8 * 4 + 1) + n * (1 + 4 + 6 * 4 + 1)
+        return nbytes, n * EXT_EXTEND_OPS
+    if name == "extend_leftover":
+        n = args[2].numel()
+        return n * (5 * 4 + 2 + 2 * 4 * 4 + 2 * (1 + 4 + 6 * 4)), \
+            2 * n * EXT_EXTEND_OPS
+    return left_chain_bytes(*args, **kw), args[4].numel() * EXT_CHAIN_OPS
+
+
+def left_chain_bytes(rp4, qp4, clen4, lens4, pi, pj, *, k):
+    """The bytes ``is_left_chain`` needs on these inputs: per slot pi, pj
+    and its answer; of each distinct chain its length and the positions
+    that some slot's walk reads (its first and last, and for a slot whose
+    chains are not separated, those its merge walk reaches); of each
+    distinct (chain, fragment) that a slot's overlap uses, its query
+    offset, and of each distinct read row those slots use, its length.
+    The merge walk is replayed here as the kernel runs it."""
+    import torch
+    from circminer_tpu_torch.config import INF
+    dev = pi.device
+    B, _, KB1, NL = rp4.shape
+    P = pi.shape[2]
+    n = pi.numel()
+    b = torch.arange(B, device=dev).view(B, 1, 1)
+    o = torch.arange(2, device=dev).view(1, 2, 1)
+    row = (b * 4 + 2 * o).expand(B, 2, P).reshape(-1)
+    ca = (row * KB1 + pi.clamp(0, KB1 - 1).reshape(-1)).long()
+    cb = (((b * 4 + 3 - 2 * o) * KB1).expand(B, 2, P).reshape(-1)
+          + pj.clamp(0, KB1 - 1).reshape(-1)).long()
+    pos, clen = rp4.reshape(-1, NL), clen4.reshape(-1)
+    A, Bf, alen, blen = pos[ca], pos[cb], clen[ca], clen[cb]
+
+    def at(x, idx):
+        return x.gather(1, idx.clamp(0, NL - 1).long()[:, None])[:, 0]
+    km1 = k - 1
+    a_end, b_end = at(A, alen - 1) + km1, at(Bf, blen - 1) + km1
+    near = ~((Bf[:, 0] > a_end) | (A[:, 0] > b_end))
+    i, j, reach_a, reach_b = (torch.zeros(n, dtype=torch.int32, device=dev)
+                              for _ in range(4))
+    bd = torch.full((n,), INF, dtype=torch.int32, device=dev)
+    bi, bj = (torch.full((n,), -1, dtype=torch.int32, device=dev)
+              for _ in range(2))
+    go = near.clone()
+    for _ in range(2 * NL):
+        go &= (i < alen) & (j < blen)
+        ai, bjv = at(A, i), at(Bf, j)
+        reach_a = torch.where(go, torch.maximum(reach_a, i), reach_a)
+        reach_b = torch.where(go, torch.maximum(reach_b, j), reach_b)
+        a_first = ai + km1 < bjv
+        b_first = ~a_first & (bjv + km1 < ai)
+        d = torch.where(a_first, bjv - (ai + km1), ai - (bjv + km1))
+        take = go & (((a_first | b_first) & (d < bd)) | ~(a_first | b_first))
+        bd = torch.where(go & (a_first | b_first) & (d < bd), d, bd)
+        bi, bj = torch.where(take, i, bi), torch.where(take, j, bj)
+        i, j = i + (go & a_first), j + (go & b_first)
+        go &= a_first | b_first
+    # per distinct chain: positions 0 .. its furthest reach, and its last
+    last = (clen - 1).clamp(0, NL - 1)
+    reach = torch.zeros(clen.numel(), dtype=torch.int32, device=dev)
+    used = torch.zeros(clen.numel(), dtype=torch.bool, device=dev)
+    for c, r in ((ca, reach_a), (cb, reach_b)):
+        reach.scatter_reduce_(0, c, r, "amax")
+        used[c] = True
+    n_pos = int(((reach + 1 + (last > reach)) * used).sum())
+    offs = torch.cat([ca[near] * NL + bi[near].clamp(0, NL - 1),
+                      cb[near] * NL + bj[near].clamp(0, NL - 1)])
+    n_q = int(torch.unique(offs).numel())
+    n_read = int(torch.unique(row[near]).numel())
+    return n * (2 * 4 + 1) + int(used.sum()) * 4 + n_pos * 4 + n_q * 4 \
+        + n_read * 4
 
 
 # floors of the wave kernels' int32 operations: per flag of a compaction
@@ -1859,6 +2163,8 @@ def tensor_kernel_bound(name, args, kw):
         nbytes, ops = walk_work(name, args, kw)
     elif name in WAVE_KERNELS:
         nbytes, ops = wave_work(name, args, kw)
+    elif name in EXTEND_KERNELS:
+        nbytes, ops = extend_work(name, args, kw)
     else:
         mr, pairs = args[0], args[1]
         B, _, P, F = pairs.shape
@@ -1873,12 +2179,13 @@ def tensor_kernel_bound(name, args, kw):
 def recording_tensor_kernels(store):
     """Wrap the wrappers of the ``launch_tensors`` kernels (chain_cells,
     chain_dp, extract_kbest_device, mr_pair_fold, walk_fold_lanes, tiny_dp,
-    walk_scan, walk_init, walk_pool, walk_commit) where the step calls
-    them, so that the first inputs of each (kernel, rows) are kept in
-    ``store`` and every call is counted there; returns the function that
-    undoes it.  A walk_fold's and walk_init's rows are its pool lanes,
-    walk_scan's and walk_commit's its (slot, lane) pairs, walk_pool's its
-    two pools' rows."""
+    walk_scan, walk_init, walk_pool, walk_commit, extend_core,
+    extend_leftover, is_left_chain) where the step calls them, so that the
+    first inputs of each (kernel, rows) are kept in ``store`` and every
+    call is counted there; returns the function that undoes it.  A
+    walk_fold's and walk_init's rows are its pool lanes, walk_scan's and
+    walk_commit's its (slot, lane) pairs, walk_pool's its two pools' rows,
+    the extend kernels' their slots (extend_leftover's chains)."""
     from circminer_tpu_torch.ops import chain_device as cd
     from circminer_tpu_torch.ops import device_finish as fin
     from circminer_tpu_torch.ops import device_full as df
@@ -1890,10 +2197,16 @@ def recording_tensor_kernels(store):
              ("walk_fold", dw, "walk_fold_lanes"), ("tiny_dp", dw, "tiny_dp"),
              ("tiny_dp", df, "tiny_dp"), ("walk_scan", dw, "walk_scan"),
              ("walk_init", dw, "walk_init"), ("walk_pool", dw, "walk_pool"),
-             ("walk_commit", dw, "walk_commit")]
+             ("walk_commit", dw, "walk_commit"),
+             ("extend_core", df, "extend_core"),
+             ("extend_leftover", df, "extend_leftover"),
+             ("is_left_chain", df, "is_left_chain")]
     saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in sites]
 
     def rows(name, args, kw):
+        if name in ("extend_core", "extend_leftover", "is_left_chain"):
+            return args[{"extend_core": 0, "extend_leftover": 2,
+                         "is_left_chain": 4}[name]].numel()
         if name == "walk_fold":
             return args[1].shape[1]
         if name in ("walk_scan", "walk_commit"):
@@ -2339,6 +2652,13 @@ WAVE_OUTS = {"walk_init": ("inv", "n_act", "over", "act", "p_live",
                            "n", "maps"),
              "walk_commit": ("events", "nev", "ws_out")}
 IN_PLACE = ("events", "nev")
+AB_EXTEND = {"extend_core": ((4096, 8, 0, True, 0.05),),
+             "extend_leftover": ((4096, 7, 6),),
+             "is_left_chain": ((4096, 7, 6, 8),)}
+# the outputs of each extend kernel
+EXTEND_OUTS = {"extend_core": ("ok", "pos_out", "best", "defer"),
+               "extend_leftover": ("ok", "pos", "best"),
+               "is_left_chain": ("out",)}
 AB_ITERS = {"chain_dp": 20, "mr_pair_fold": 50, "chain_cells": 50,
             "extract_kbest": 50}
 
@@ -2388,11 +2708,13 @@ def ab_cases(names, w=3, seed=19):
         [rec] = chr21_step_inputs("chain_dp")
         yield chain_case(f"chr21 step, b={rec['args'][0].shape[0]}",
                          rec["args"], rec["kw"])
-    for name in (*WALK_KERNELS, *WAVE_KERNELS, *END_KERNELS):
+    for name in (*WALK_KERNELS, *WAVE_KERNELS, *END_KERNELS, *AB_EXTEND):
         if name not in names:
             continue
         spec = _ext.KERNELS[name]
         case_of, specs = ((end_case, AB_END[name]) if name in END_KERNELS
+                          else (extend_case, AB_EXTEND[name])
+                          if name in AB_EXTEND
                           else (walk_case, AB_WALK[name]))
         cases = [(str(case), *case_of(name, case, torch.device("cuda"),
                                       seed + k))
@@ -2402,8 +2724,8 @@ def ab_cases(names, w=3, seed=19):
         # the outputs: a walk kernel's one, a wave kernel's (walk_commit's
         # events and counts in place, then its state), the chain ends' six
         # (chain_cells' posf is its input)
-        out_names = WAVE_OUTS.get(name) or spec.tensors[
-            -(1 if name in WALK_KERNELS else 6):]
+        out_names = WAVE_OUTS.get(name) or EXTEND_OUTS.get(name) or \
+            spec.tensors[-(1 if name in WALK_KERNELS else 6):]
         for tag, args, kw in cases:
             yield (name, tag, *ab_values(name, args, kw, out_names))
     if "mr_pair_fold" in names:
@@ -2421,6 +2743,7 @@ def ab_values(name, args, kw, out_names):
     """({parameter name: tensor or int} of the wrapper's own launch of
     ``launch_tensors`` kernel ``name`` on these arguments, ``out_names``,
     the plain version's outputs of those names)."""
+    import torch
     from circminer_tpu_torch.ops import _ext
     spec = _ext.KERNELS[name]
     kern, plain = tensor_kernel_calls(name, args, kw)
@@ -2429,7 +2752,8 @@ def ab_values(name, args, kw, out_names):
                 **dict(zip(spec.statics, got["statics"])))
     if name == "walk_commit":         # the counts and events it was given
         vals.update(events=args[8], nev=args[9])
-    return vals, out_names, plain()[-len(out_names):]
+    want = plain()
+    return vals, out_names, want[-len(out_names):]
 
 
 def ab_buffers(name, vals, outs):
@@ -3733,6 +4057,7 @@ def main() -> int:
         phase_chain_fold(device)
         phase_walk(device)
         phase_chain_ends(device)
+        phase_extend(device)
         buckets = phase_chain_buckets(device)
         lap("2 kernels")
         cfg, gi, db, reads, truth = chr21_setup()

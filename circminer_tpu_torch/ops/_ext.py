@@ -100,6 +100,21 @@ KERNELS = {
         "cm_extract_kbest", ("R", "NL", "S", "C", "iters"),
         ("dp10", "back", "pos", "qpos", "cnt", "rpos", "qp", "clen", "sc10",
          "cn", "incomplete")),
+    "extend_core": Kernel(
+        "cm_extend_core", ("N", "fam", "left", "max_sc", "band"),
+        ("pos", "length", "ed_th", "bound", "has_tids", "iv", "exon_len",
+         "covered", "wx", "walk_inb", "gen_inb", "g_ed", "g_sclen",
+         "g_indel", "g_score", "w_ed", "w_sclen", "w_indel", "w_score",
+         "fold", "over", "act", "ok", "pos_out", "best", "defer")),
+    # the leftover extends: extend_core's wrap-up, left then right
+    "extend_leftover": Kernel(
+        "cm_extend_leftover", ("N", "NL", "max_ed", "max_sc", "band"),
+        ("rp4", "qp4", "pos_r", "remain_end", "est_mid", "genL_inb",
+         "genR_inb", "dp_ed", "dp_sclen", "dp_indel", "dp_score", "ok", "pos",
+         "best")),
+    "is_left_chain": Kernel(
+        "cm_is_left_chain", ("B", "KB1", "NL", "P", "k"),
+        ("rp4", "qp4", "clen4", "lens4", "pi", "pj", "out")),
 }
 DP_KERNELS = tuple(n for n, k in KERNELS.items() if k.tensors is None)
 I_KERNEL = 128  # DP extent of every kernel: cells i = 0 .. 127 of a diagonal

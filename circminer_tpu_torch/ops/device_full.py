@@ -33,7 +33,6 @@ intermediate stays int32.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -43,7 +42,7 @@ from ..config import (CONCRD, DISCRD, CHIORF, CHIBSJ, CHI2BSJ, CONGEN,
                       LARIAT2BEGTH)
 from . import _ext
 from .align_device import one_side_batch
-from .device_walk import tiny_dp
+from .device_walk import FOLD_OUT, KEYS, fold_result, tiny_dp
 from .pallas_align import POS, xdrop_batch
 
 _i32 = torch.int32
@@ -107,17 +106,15 @@ def _mate_rows(dev):
 
 
 def _bisect_le(sorted_arr, x):
-    """Index of the last element <= x (or -1); sorted_arr int32 [N]."""
-    n = sorted_arr.shape[0]
-    lo = torch.zeros_like(x)
-    hi = torch.full_like(x, n)
-    for _ in range(int(np.ceil(np.log2(max(2, n + 1)))) + 1):
-        active = lo < hi
-        mid = (lo + hi) >> 1
-        go_right = sorted_arr[torch.clamp(mid, 0, n - 1).long()] <= x
-        lo = torch.where(active & go_right, mid + 1, lo)
-        hi = torch.where(active & ~go_right, mid, hi)
-    return lo - 1
+    """Index of the last element <= x (or -1); sorted_arr int32 [N],
+    non-decreasing (both callers' arrays are by construction), x int32
+    [...].  One searchsorted: the reference's bisect loop finds the same
+    index on a non-decreasing array.  An empty array raises, as the
+    reference's gather does."""
+    if sorted_arr.shape[0] == 0:
+        raise ValueError("_bisect_le needs a non-empty sorted array")
+    return torch.searchsorted(sorted_arr, x.contiguous(), right=True,
+                              out_int32=True) - 1
 
 
 def _overlap_ind(ad, fa, pos):
@@ -364,6 +361,164 @@ def _extend_core_flat(pos, length, ed_th, bound, has_tids, iv_ok, exon_len,
                                    f(gen_ok), eng=eng, **kw)
     return (ok.reshape(shp), p.reshape(shp),
             {kk: v.reshape(shp) for kk, v in best.items()}, df.reshape(shp))
+
+
+# the four fields of an end / genomic DP result, in the kernel's order
+DP_KEYS = ("ed", "sclen", "indel", "score")
+
+
+def extend_core(pos, length, ed_th, bound, has_tids, iv, exon_len, covered,
+                wx, walk_inb, gen_inb, g_ed, g_sclen, g_indel, g_score, w_ed,
+                w_sclen, w_indel, w_score, fold, over, act, *, fam: int,
+                left: bool, max_sc: int, band: int):
+    """One extend family of phase 2 (``_extend_core`` with the walk
+    engine's fold, extend.cpp:285-432; the reference's run_side,
+    circminer_tpu/ops/device_full.py:1060-1085) over the [B, 2, P] pair
+    slots, reading the side bundle's fields as they are: pos, length,
+    ed_th, bound, iv, exon_len int32 and has_tids, covered, wx, walk_inb,
+    gen_inb bool [B, 2, P]; g_* / w_* the genomic and walk end DPs' four
+    DP_KEYS fields, int32 [B, 2, P] each; fold the family's ``walk_fold``
+    output, int32 [len(FOLD_OUT), B * 2 * P]; over bool [4 * B * 2 * P]
+    and act bool [4, B, 2, P] the walk's pool overflow and lane masks.
+    Returns (ok bool [B, 2, P], pos int32 [B, 2, P], best int32
+    [len(KEYS), B, 2, P], defer bool [B, 2, P]).  On a CPU tensor its plain version
+    (``_extend_core_plain``); on a CUDA tensor the ``extend_core`` kernel
+    (csrc/extend.cu), or a raise."""
+    ins = (pos, length, ed_th, bound, has_tids, iv, exon_len, covered, wx,
+           walk_inb, gen_inb, g_ed, g_sclen, g_indel, g_score, w_ed, w_sclen,
+           w_indel, w_score, fold, over, act)
+    kw = dict(fam=fam, left=left, max_sc=max_sc, band=band)
+    if not pos.is_cuda:
+        return _extend_core_plain(*ins, **kw)
+    dev, shp = pos.device, pos.shape
+    ok = torch.empty(shp, dtype=torch.bool, device=dev)
+    pos_out = torch.empty(shp, dtype=_i32, device=dev)
+    best = torch.empty((len(KEYS), *shp), dtype=_i32, device=dev)
+    defer = torch.empty(shp, dtype=torch.bool, device=dev)
+    N = pos.numel()
+    if N:
+        _ext.launch_tensors(
+            "extend_core", extend_core_args(*ins, ok, pos_out, best, defer),
+            (N, fam, int(left), max_sc, band))
+    return ok, pos_out, best, defer
+
+
+def extend_core_args(pos, length, ed_th, bound, has_tids, iv, exon_len,
+                     covered, wx, walk_inb, gen_inb, g_ed, g_sclen, g_indel,
+                     g_score, w_ed, w_sclen, w_indel, w_score, fold, over,
+                     act, ok, pos_out, best, defer):
+    """The (tensor, dtype, shape) arguments of the ``extend_core`` kernel,
+    in its order."""
+    shp = tuple(pos.shape)
+    N = pos.numel()
+    i32, b8 = _i32, torch.bool
+    return [(pos, i32, shp), (length, i32, shp), (ed_th, i32, shp),
+            (bound, i32, shp), (has_tids, b8, shp), (iv, i32, shp),
+            (exon_len, i32, shp), (covered, b8, shp), (wx, b8, shp),
+            (walk_inb, b8, shp), (gen_inb, b8, shp),
+            *((x, i32, shp) for x in (g_ed, g_sclen, g_indel, g_score, w_ed,
+                                       w_sclen, w_indel, w_score)),
+            (fold, i32, (len(FOLD_OUT), N)), (over, b8, (4 * N,)),
+            (act, b8, (4, *shp)), (ok, b8, shp), (pos_out, i32, shp),
+            (best, i32, (len(KEYS), *shp)), (defer, b8, shp)]
+
+
+def _extend_core_plain(pos, length, ed_th, bound, has_tids, iv, exon_len,
+                       covered, wx, walk_inb, gen_inb, g_ed, g_sclen,
+                       g_indel, g_score, w_ed, w_sclen, w_indel, w_score,
+                       fold, over, act, *, fam, left, max_sc, band):
+    """The plain version of ``extend_core``: the walk DP picked by wx, the
+    fold's rows as the engine's result, then ``_extend_core_flat``, its
+    best stacked in KEYS order."""
+    shp = pos.shape
+    gen = dict(zip(DP_KEYS, (g_ed, g_sclen, g_indel, g_score)))
+    walk = _ares_where(wx, dict(zip(DP_KEYS, (w_ed, w_sclen, w_indel,
+                                              w_score))), gen)
+    walk_ok = covered & torch.where(wx, walk_inb, gen_inb)
+    best, consec, defer = fold_result(fold, over, fam, shp)
+    eng = dict(active=act[fam], best=best, consec=consec, defer=defer)
+    ok, pos_out, best, defer = _extend_core_flat(
+        pos, length, ed_th, bound, has_tids, iv >= 0, exon_len, walk,
+        walk_ok, gen, gen_inb, eng=eng, left=left, max_sc=max_sc, band=band)
+    return ok, pos_out, torch.stack([best[kk] for kk in KEYS]), defer
+
+
+def extend_leftover(rp4, qp4, pos_r, remain_end, est_mid, genL_inb,
+                    genR_inb, dp_ed, dp_sclen, dp_indel, dp_score, *,
+                    max_ed: int, max_sc: int, band: int):
+    """The leftover chain-level extends (extend.cpp:131-213; the
+    reference's two ``_extend_core_flat`` calls in device_full_finish,
+    circminer_tpu/ops/device_full.py:1353-1370) over the [B, 4, KB1]
+    chains: the left extend from pos_l = rp4[..., 0] over remain_beg =
+    qp4[..., 0] against lb 0, then the right one from pos_r over
+    remain_end against ub I32MAX, whose ed_th is what the left one left
+    of max_ed - est_mid.  Neither passes transcripts (has_tids false), so
+    each reads only its genomic DP (side s, variant 0 of the phase-1 DP
+    fields dp_* int32 [B, 4, KB1, 2, 2]) and its genL_inb / genR_inb.
+    Returns (ok bool [2, B, 4, KB1], pos int32 [2, B, 4, KB1], best int32
+    [2, len(KEYS), B, 4, KB1]), left then right.  On a CPU tensor its plain
+    version (``_extend_leftover_plain``); on a CUDA tensor the
+    ``extend_leftover`` kernel (csrc/extend.cu), or a raise."""
+    kw = dict(max_ed=max_ed, max_sc=max_sc, band=band)
+    if not pos_r.is_cuda:
+        return _extend_leftover_plain(rp4, qp4, pos_r, remain_end, est_mid,
+                                      genL_inb, genR_inb, dp_ed, dp_sclen,
+                                      dp_indel, dp_score, **kw)
+    dev, shp = pos_r.device, pos_r.shape
+    ok = torch.empty((2, *shp), dtype=torch.bool, device=dev)
+    pos = torch.empty((2, *shp), dtype=_i32, device=dev)
+    best = torch.empty((2, len(KEYS), *shp), dtype=_i32, device=dev)
+    N = pos_r.numel()
+    if N:
+        _ext.launch_tensors(
+            "extend_leftover", extend_leftover_args(
+                rp4, qp4, pos_r, remain_end, est_mid, genL_inb, genR_inb,
+                dp_ed, dp_sclen, dp_indel, dp_score, ok, pos, best),
+            (N, rp4.shape[-1], max_ed, max_sc, band))
+    return ok, pos, best
+
+
+def extend_leftover_args(rp4, qp4, pos_r, remain_end, est_mid, genL_inb,
+                         genR_inb, dp_ed, dp_sclen, dp_indel, dp_score, ok,
+                         pos, best):
+    """The (tensor, dtype, shape) arguments of the ``extend_leftover``
+    kernel, in its order."""
+    shp = tuple(pos_r.shape)
+    i32, b8 = _i32, torch.bool
+    return [(rp4, i32, (*shp, rp4.shape[-1])),
+            (qp4, i32, (*shp, rp4.shape[-1])), (pos_r, i32, shp),
+            (remain_end, i32, shp), (est_mid, i32, shp),
+            (genL_inb, b8, shp), (genR_inb, b8, shp),
+            *((x, i32, (*shp, 2, 2))
+              for x in (dp_ed, dp_sclen, dp_indel, dp_score)),
+            (ok, b8, (2, *shp)), (pos, i32, (2, *shp)),
+            (best, i32, (2, len(KEYS), *shp))]
+
+
+def _extend_leftover_plain(rp4, qp4, pos_r, remain_end, est_mid, genL_inb,
+                           genR_inb, dp_ed, dp_sclen, dp_indel, dp_score, *,
+                           max_ed, max_sc, band):
+    """The plain version of ``extend_leftover``: the reference's two
+    ``_extend_core_flat`` calls.  With has_tids false neither reads iv_ok
+    or exon_len (no walk is active), so both pass false and 0."""
+    shp = pos_r.shape
+    dev = pos_r.device
+    no = torch.zeros(shp, dtype=torch.bool, device=dev)
+    zero = torch.zeros(shp, dtype=_i32, device=dev)
+    dps = (dp_ed, dp_sclen, dp_indel, dp_score)
+    gl = {f: x[..., 0, 0] for f, x in zip(DP_KEYS, dps)}
+    gr = {f: x[..., 1, 0] for f, x in zip(DP_KEYS, dps)}
+    kw = dict(max_sc=max_sc, band=band)
+    lok, spos, bl, _ = _extend_core_flat(
+        rp4[..., 0], qp4[..., 0], max_ed - est_mid, zero, no, no, zero, gl,
+        no, gl, genL_inb, left=True, **kw)
+    rok, epos, br, _ = _extend_core_flat(
+        pos_r, remain_end, max_ed - est_mid - bl["ed"],
+        torch.full(shp, I32MAX, dtype=_i32, device=dev), no, no, zero, gr,
+        no, gr, genR_inb, left=False, **kw)
+    return (torch.stack([lok, rok]), torch.stack([spos, epos]),
+            torch.stack([torch.stack([b[kk] for kk in KEYS])
+                         for b in (bl, br)]))
 
 
 # --------------------------------------------------------------------------
@@ -748,7 +903,8 @@ def _phase1(seqs, lens, hh, rp, qp, cl, sc10, cn, inc, mr_in,
         covered_l=covered_l, covered_r=covered_r, wxL=wxL, wxR=wxR,
         walkL_inb=walkL_inb, walkR_inb=walkR_inb, genL_inb=genL_inb,
         genR_inb=genR_inb, est_mid=est_mid, mid_dp=mid_dp,
-        side_dp=side_dp, defer=defer, cn4=cn4, hh4=hh4, lens4=lens4,
+        side_dp=side_dp, dp=(dp_ed, dp_scl, dp_ind, dp_scr), defer=defer,
+        cn4=cn4, hh4=hh4, lens4=lens4,
         rp4=rp4, qp4=qp4, sc4=sc4, mr_in=mr_in,
     )
 
@@ -800,6 +956,54 @@ def _is_left_chain(a_rp, a_qp, a_len, b_rp, b_qp, b_len, read_len, NL, k):
                        torch.where(both_in, a_ov >= b_ov, a_beg < b_beg))
 
 
+def is_left_chain(rp4, qp4, clen4, lens4, pi, pj, *, k: int):
+    """Whether each pair slot's forward-mate chain is the left one
+    (``_is_left_chain`` on the slot's two chains, utils.cpp:827-887; the
+    reference's call at circminer_tpu/ops/device_full.py:993): rp4, qp4
+    int32 [B, 4, KB1, NL] the chains' fragments, clen4 int32 [B, 4, KB1]
+    their lengths, lens4 int32 [B, 4] the reads', pi / pj int32 [B, 2, P]
+    the slot's forward chain in row ``_mate_rows``' frows[o] and reverse
+    chain in vrows[o].  Returns bool [B, 2, P].  On a CPU tensor its plain
+    version (``_is_left_chain_plain``); on a CUDA tensor the
+    ``is_left_chain`` kernel (csrc/extend.cu), or a raise."""
+    if not pi.is_cuda:
+        return _is_left_chain_plain(rp4, qp4, clen4, lens4, pi, pj, k=k)
+    out = torch.empty(pi.shape, dtype=torch.bool, device=pi.device)
+    B, _, KB1, NL = rp4.shape
+    if pi.numel():
+        _ext.launch_tensors(
+            "is_left_chain",
+            is_left_chain_args(rp4, qp4, clen4, lens4, pi, pj, out),
+            (B, KB1, NL, pi.shape[2], k))
+    return out
+
+
+def is_left_chain_args(rp4, qp4, clen4, lens4, pi, pj, out):
+    """The (tensor, dtype, shape) arguments of the ``is_left_chain``
+    kernel, in its order."""
+    B, _, KB1, NL = rp4.shape
+    shp = (B, 2, pi.shape[2])
+    i32 = _i32
+    return [(rp4, i32, (B, 4, KB1, NL)), (qp4, i32, (B, 4, KB1, NL)),
+            (clen4, i32, (B, 4, KB1)), (lens4, i32, (B, 4)),
+            (pi, i32, shp), (pj, i32, shp), (out, torch.bool, shp)]
+
+
+def _is_left_chain_plain(rp4, qp4, clen4, lens4, pi, pj, *, k):
+    """The plain version of ``is_left_chain``: the slot's two chains
+    gathered, then ``_is_left_chain``."""
+    NL = rp4.shape[3]
+    frows, vrows = _mate_rows(pi.device)
+
+    def chain(x, rows, idx):
+        return _along(x[:, rows], idx, 2)
+    read_len = lens4[:, frows][..., None].expand(pi.shape)
+    return _is_left_chain(
+        chain(rp4, frows, pi), chain(qp4, frows, pi),
+        chain(clen4, frows, pi), chain(rp4, vrows, pj),
+        chain(qp4, vrows, pj), chain(clen4, vrows, pj), read_len, NL, k)
+
+
 # --------------------------------------------------------------------------
 # phase 2: pair-union table + paired extension
 # --------------------------------------------------------------------------
@@ -811,7 +1015,7 @@ SF_NAMES = ("r0", "q0", "lastq", "lastr", "remain_beg", "remain_end",
 SF_BOOL = {"covered_l", "covered_r", "wxL", "wxR", "walkL_inb",
            "walkR_inb", "genL_inb", "genR_inb"}
 SF_DP = [(side, var, f) for side in (0, 1) for var in (0, 1)
-         for f in ("ed", "sclen", "indel", "score")]
+         for f in DP_KEYS]
 
 
 def _phase2(st, ad, fa, seqs, genome, *, k, max_ed, max_sc, band, P_MAX,
@@ -822,9 +1026,9 @@ def _phase2(st, ad, fa, seqs, genome, *, k, max_ed, max_sc, band, P_MAX,
     run through the walk engine (ops/device_walk.py).  upto in ("p2_grid",
     "p2_gath", "p2_walk", "p2_ext") returns the reference's state at that
     cut point instead."""
-    from .device_walk import walk_fold, walk_waves
+    from .device_walk import walk_fold_rows, walk_waves
 
-    B, KB1, NL = st["B"], st["KB1"], st["NL"]
+    B, KB1 = st["B"], st["KB1"]
     dev = seqs.device
     rp4, qp4, cn4 = st["rp4"], st["qp4"], st["cn4"]
     defer = st["defer"]
@@ -915,10 +1119,7 @@ def _phase2(st, ad, fa, seqs, genome, *, k, max_ed, max_sc, band, P_MAX,
     vm = side_fields(pj, vrows)   # rev mate
 
     # is_left_chain on the pair's chains (fwd vs rev), fwd read length
-    fwd_left = _is_left_chain(
-        _along(rp4[:, frows], pi, 2), _along(qp4[:, frows], pi, 2),
-        fm["clen"], _along(rp4[:, vrows], pj, 2),
-        _along(qp4[:, vrows], pj, 2), vm["clen"], fm["seq_len"], NL, k)
+    fwd_left = is_left_chain(rp4, qp4, st["clen"], st["lens4"], pi, pj, k=k)
 
     def sel(c, a, b):
         return {kk: torch.where(c, a[kk], b[kk]) for kk in a}
@@ -930,10 +1131,6 @@ def _phase2(st, ad, fa, seqs, genome, *, k, max_ed, max_sc, band, P_MAX,
     l_mid, r_mid = lm_c["mid_dp"], rm_c["mid_dp"]
     success = (l_mid <= max_ed) & (r_mid <= max_ed)
     has_tids = p_same_tr
-
-    def dp_of(mc, side, var):
-        return {f: mc[f"dp{side}{var}_{f}"]
-                for f in ("ed", "sclen", "indel", "score")}
 
     if upto == "p2_gath":
         out = dict(defer=defer, fwd_left=fwd_left)
@@ -980,23 +1177,19 @@ def _phase2(st, ad, fa, seqs, genome, *, k, max_ed, max_sc, band, P_MAX,
 
     def run_side(mc, side_left, bound, ed_th, fam):
         with record_function("cm.walk_fold"):
-            eb, ec, edf = walk_fold(wk, fam, ed_th, bound, max_ed=max_ed,
-                                    max_sc=max_sc, band=band,
-                                    left=side_left)
-        eng = dict(active=act4[fam], best=eb, consec=ec, defer=edf)
+            fold = walk_fold_rows(wk, fam, ed_th, bound, max_ed=max_ed,
+                                  max_sc=max_sc, band=band, left=side_left)
         s, tag = (0, "L") if side_left else (1, "R")
-        gen = dp_of(mc, s, 0)
-        walk_extra = mc["wx" + tag]
-        walk = _ares_where(walk_extra, dp_of(mc, s, 1), gen)
-        walk_ok = mc["covered_" + tag.lower()] & torch.where(
-            walk_extra, mc[f"walk{tag}_inb"], mc[f"gen{tag}_inb"])
-        side = "l" if side_left else "r"
+        side = tag.lower()
         length = mc["remain_beg"] if side_left else mc["remain_end"]
-        return _extend_core_flat(
+        ok, pos, best, defer = extend_core(
             mc["pos_" + side], length, ed_th, bound, has_tids,
-            mc["iv_" + side] >= 0, mc["exon_len_" + side], walk, walk_ok,
-            gen, mc[f"gen{tag}_inb"], eng=eng, left=side_left,
-            max_sc=max_sc, band=band)
+            mc["iv_" + side], mc["exon_len_" + side], mc["covered_" + side],
+            mc["wx" + tag], mc[f"walk{tag}_inb"], mc[f"gen{tag}_inb"],
+            *(mc[f"dp{s}{v}_{f}"] for v in (0, 1) for f in DP_KEYS), fold,
+            wk["over"], act4,
+            fam=fam, left=side_left, max_sc=max_sc, band=band)
+        return ok, pos, dict(zip(KEYS, best.unbind(0))), defer
 
     MINLB = zero3
     MAXUBv = torch.full((B, 2, P_MAX), I32MAX, dtype=_i32, device=dev)
@@ -1376,19 +1569,14 @@ def device_full_finish(seqs, lens, hh, rp, qp, cl, sc10, cn, inc, mr_in,
 
     # ---- leftover chain-level extends (extend.cpp:131-213) -----------
     with record_function("cm.leftover_extend"):
-        no_tids = torch.zeros((B, 4, KB1), dtype=torch.bool, device=dev)
-        zero4 = torch.zeros((B, 4, KB1), dtype=_i32, device=dev)
-        lo_lok, lo_spos, lo_bl, _ = _extend_core_flat(
-            st["pos_l"], st["remain_beg"], max_ed - st["est_mid"], zero4,
-            no_tids, st["iv_l"] >= 0, st["exon_len_l"], st["side_dp"](0, 0),
-            no_tids, st["side_dp"](0, 0), st["genL_inb"], left=True,
-            max_sc=max_sc, band=band)
-        lo_rok, lo_epos, lo_br, _ = _extend_core_flat(
-            st["pos_r"], st["remain_end"], max_ed - st["est_mid"] - lo_bl["ed"],
-            torch.full((B, 4, KB1), I32MAX, dtype=_i32, device=dev), no_tids,
-            st["iv_r"] >= 0, st["exon_len_r"], st["side_dp"](1, 0), no_tids,
-            st["side_dp"](1, 0), st["genR_inb"], left=False, max_sc=max_sc,
-            band=band)
+        lo_ok, lo_pos, lo_best = extend_leftover(
+            st["rp4"], st["qp4"], st["pos_r"], st["remain_end"],
+            st["est_mid"], st["genL_inb"], st["genR_inb"], *st["dp"],
+            max_ed=max_ed, max_sc=max_sc, band=band)
+        lo_lok, lo_rok = lo_ok.unbind(0)
+        lo_spos, lo_epos = lo_pos.unbind(0)
+        lo_bl, lo_br = (dict(zip(KEYS, b.unbind(0)))
+                        for b in lo_best.unbind(0))
         # is_concord short-circuit (utils.cpp:116-132)
         fullcov = (st["clen"] >= 2) & ((st["lastq"] + k - st["q0"])
                                        >= st["lens4"][:, :, None])

@@ -896,21 +896,27 @@ FOLD_ST_MAX, FOLD_EW_MAX = 8, 8
 FOLD_OUT = KEYS + ("consec", "defer")
 
 
-def walk_fold(wk, fam: int, ed_th, bound, *, max_ed, max_sc, band,
-              left: bool):
+def fold_result(rows, over, fam: int, shp):
+    """(best dict, consec, defer), each of shape ``shp``, of family
+    ``fam``'s fold rows (``walk_fold_rows``) and the walk's [4N] pool
+    overflow mask ``over``."""
+    out = rows.reshape(len(FOLD_OUT), *shp)
+    best = dict(zip(KEYS, out.unbind(0)))
+    return best, out[6] != 0, (out[7] != 0) | over.reshape(4, *shp)[fam]
+
+
+def walk_fold_rows(wk, fam: int, ed_th, bound, *, max_ed, max_sc, band,
+                   left: bool):
     """Replay one extend family's events in (tid, event) order against that
-    extend's actual ed_th/bound (both [B, 2, P]).  Returns (best dict,
-    consec, defer), each [B, 2, P]; callers mask with their own active-lane
-    set."""
-    shp3 = ed_th.shape
-    out = walk_fold_lanes(
+    extend's actual ed_th / bound (both [B, 2, P]; the reference's
+    ``walk_fold``): the fold as ``walk_fold_lanes`` returns it, int32
+    [len(FOLD_OUT), N] over the flat pair slots (phase 2's extend_core
+    reads these rows as they are; ``fold_result`` splits them)."""
+    return walk_fold_lanes(
         wk["events"], wk["act"], wk["inv"], wk["n_act"], wk["p_live"],
         wk["p_pos"], wk["p_len"], wk["lane_defer"], ed_th.reshape(-1),
         bound.reshape(-1), fam=fam, left=left, max_ed=max_ed,
-        max_sc=max_sc, band=band).reshape(len(FOLD_OUT), *shp3)
-    best = dict(zip(KEYS, out.unbind(0)))
-    over4 = wk["over"].reshape(4, *shp3)[fam]
-    return best, out[6] != 0, (out[7] != 0) | over4
+        max_sc=max_sc, band=band)
 
 
 def walk_fold_lanes(events, act, inv, n_act, p_live, p_pos, p_len,

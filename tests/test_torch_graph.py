@@ -1,7 +1,7 @@
 """The gpu-full step as one captured CUDA graph (``ops/step_graph.py``).
 
 On the CPU: a sync audit of ``device_full_step`` (one step of
-tests/test_torch_full.py's tiny world with the eleven kernel wrappers stubbed
+tests/test_torch_full.py's tiny world with the kernel wrappers stubbed
 to their output shapes, under a TorchDispatchMode: no op that makes the
 host wait for the card, no boolean-mask indexing, every lifted scalar from
 a named site, each kernel wrapper called as often as a replay counts it
@@ -69,7 +69,8 @@ LIFT_SITES = {
 PER_STEP = {"xdrop": 5, "edit_end": 4, "one_side": 1, "edit_sc": 0,
             "chain_dp": 1, "mr_pair_fold": 2, "walk_fold": 4, "walk_scan": 4,
             "tiny_dp": 5, "chain_cells": 1, "extract_kbest": 1,
-            "walk_init": 1, "walk_pool": 4, "walk_commit": 4}
+            "walk_init": 1, "walk_pool": 4, "walk_commit": 4,
+            "extend_core": 4, "extend_leftover": 1, "is_left_chain": 1}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -141,7 +142,7 @@ def _kernel_args_ok(args):
 
 
 def _stubs(calls):
-    """The fourteen kernel wrappers as they are called from the step, each
+    """The kernel wrappers as they are called from the step, each
     returning zeros of its output shape and counting its calls; all but
     the four DP kernels' check the arguments their kernels would get."""
     def out(name, s, k):
@@ -260,6 +261,33 @@ def _stubs(calls):
         _kernel_args_ok(twalk.walk_commit_args(ws, *args, out))
         return out
 
+    def extend_core(pos, *args, **kw):
+        calls["extend_core"] += 1
+        shp = pos.shape
+        out = (torch.zeros(shp, dtype=torch.bool),
+               torch.zeros(shp, dtype=torch.int32),
+               torch.zeros((len(twalk.KEYS), *shp), dtype=torch.int32),
+               torch.zeros(shp, dtype=torch.bool))
+        _kernel_args_ok(tfull.extend_core_args(pos, *args, *out))
+        return out
+
+    def extend_leftover(rp4, qp4, pos_r, *args, **kw):
+        calls["extend_leftover"] += 1
+        shp = pos_r.shape
+        out = (torch.zeros((2, *shp), dtype=torch.bool),
+               torch.zeros((2, *shp), dtype=torch.int32),
+               torch.zeros((2, len(twalk.KEYS), *shp), dtype=torch.int32))
+        _kernel_args_ok(tfull.extend_leftover_args(rp4, qp4, pos_r, *args,
+                                                   *out))
+        return out
+
+    def is_left_chain(rp4, qp4, clen4, lens4, pi, pj, **kw):
+        calls["is_left_chain"] += 1
+        out = torch.zeros(pi.shape, dtype=torch.bool)
+        _kernel_args_ok(tfull.is_left_chain_args(rp4, qp4, clen4, lens4, pi,
+                                                 pj, out))
+        return out
+
     return {
         (tfull, "one_side_batch"): lambda s, *a, **kw: out("one_side", s, 1),
         (tfull, "xdrop_batch"): lambda s, *a, **kw: out("xdrop", s, 3),
@@ -276,6 +304,9 @@ def _stubs(calls):
         (twalk, "walk_commit"): walk_commit,
         (twalk, "tiny_dp"): tiny_dp,
         (tfull, "tiny_dp"): tiny_dp,
+        (tfull, "extend_core"): extend_core,
+        (tfull, "extend_leftover"): extend_leftover,
+        (tfull, "is_left_chain"): is_left_chain,
     }
 
 
@@ -306,14 +337,16 @@ def test_fused_step_never_waits_for_the_device(world, monkeypatch):
     indexing, every lifted scalar from a named site, and the kernels
     launched 5 (xdrop), 4 (edit_end), 1 (one_side), 1 (chain_cells), 1
     (chain_dp), 1 (extract_kbest), 2 (mr_pair_fold), 4 (walk_fold), 4
-    (walk_scan), 5 (tiny_dp), 1 (walk_init), 4 (walk_pool) and 4
-    (walk_commit) times.
-    The step dispatches 5,122 aten ops with the kernels stubbed: 5,127
-    while walk_init and walk_pool each allocated a device workspace of
-    tile counts, 6,849
-    before walk_init, walk_pool and walk_commit, 8,053 before chain_cells
-    and extract_kbest, 8,062 before tiny_dp took its pools' select of the
-    fallback rows, 39,031 before the walk's kernels."""
+    (walk_scan), 5 (tiny_dp), 1 (walk_init), 4 (walk_pool), 4
+    (walk_commit), 4 (extend_core), 1 (extend_leftover) and 1
+    (is_left_chain) times.
+    The step dispatches 2,648 aten ops with the kernels stubbed: 5,122
+    before extend_core, extend_leftover, is_left_chain and the one-op
+    interval bisect, 5,127 while walk_init and walk_pool each allocated a
+    device workspace of tile counts, 6,849 before walk_init, walk_pool and
+    walk_commit, 8,053 before chain_cells and extract_kbest, 8,062 before
+    tiny_dp took its pools' select of the fallback rows, 39,031 before the
+    walk's kernels."""
     blob, audit, calls = _audited_step(world, monkeypatch)
     assert tuple(blob.shape) == (BATCH, tfull.MRF + 1)
     assert not audit.syncing, Counter(audit.syncing)
@@ -324,7 +357,7 @@ def test_fused_step_never_waits_for_the_device(world, monkeypatch):
     print(f"device_full_step at B = {BATCH}, kernels stubbed: {total} aten "
           f"ops per step; top {audit.ops.most_common(5)}; by innermost "
           f"span {audit.by_span.most_common()}")
-    assert total == 5_122
+    assert total == 2_648
 
 
 def test_walk_scan_and_fold_are_one_kernel_each(world, monkeypatch):

@@ -99,10 +99,11 @@ def test_plain_walk_fold_matches_jax(fam, left):
                 p_pos=p_pos, p_len=p_len, lane_defer=lane_defer, over=over)
     stat = dict(max_ed=kw["max_ed"], max_sc=kw["max_sc"], band=kw["band"],
                 left=left)
-    got = twalk.walk_fold(
-        dict(meta, **{k: torch.from_numpy(v) for k, v in tens.items()}),
-        fam, torch.from_numpy(ed_th.reshape(shp3)),
-        torch.from_numpy(bound.reshape(shp3)), **stat)
+    wk = dict(meta, **{k: torch.from_numpy(v) for k, v in tens.items()})
+    got = twalk.fold_result(
+        twalk.walk_fold_rows(wk, fam, torch.from_numpy(ed_th.reshape(shp3)),
+                             torch.from_numpy(bound.reshape(shp3)), **stat),
+        wk["over"], fam, shp3)
     want = jwalk.walk_fold(
         dict(meta, **{k: jnp.asarray(v) for k, v in tens.items()}), fam,
         jnp.asarray(ed_th.reshape(shp3)), jnp.asarray(bound.reshape(shp3)),
