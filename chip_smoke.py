@@ -36,12 +36,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      0, 1, 31, 32, 33 and iters + 1 event cells, more than 64 picks, a
      row of 15,000 cells whose walks read device memory), eagerly and
      replayed from a CUDA graph; phase 2's extend kernels (extend_core
-     on phase 2's families, extend_leftover on the leftover extends, and
-     is_left_chain) bit-equal to their plain versions over EXTEND_SWEEP
-     (chr21's main shapes, bounds at I32MAX, 0, INT32_MIN and at the
-     gate, positions near both int32 ends, lengths <= 0, no, some and
-     every lane held by the walk engine; chains separated, touching and
-     interleaved, NL 1-40), eagerly and replayed from a CUDA graph; and
+     on phase 2's families, extend_leftover on the leftover extends)
+     bit-equal to their plain versions over EXTEND_SWEEP (chr21's main
+     shapes, bounds at I32MAX, 0, INT32_MIN and at the gate, positions
+     near both int32 ends, lengths <= 0, no, some and every lane held by
+     the walk engine), eagerly and replayed from a CUDA graph; phase 2's
+     pair grid (pair_grid) bit-equal to its plain version over PAIR_SWEEP
+     (chr21's main shape, 81 and 144 cells a read, P_MAX past 32 and past
+     the cells, n_union 0, at P_MAX and past it, intervals -1 and past the
+     table, tid and segment lists at and over their pads, chains
+     separated, touching and interleaved, NL 1-17, ends past I32MAX,
+     pairs at exactly MAXDISCRDTLEN), eagerly and replayed; and
      chain_dp timed
      beside its
      plain version and bound at gpu-chain's S = 128 and 500 buckets
@@ -65,10 +70,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      to native, with the xdrop, one_side, edit_end, chain_cells, chain_dp,
      extract_kbest, mr_pair_fold, walk_fold, walk_scan, tiny_dp,
      walk_init, walk_pool, walk_commit, extend_core, extend_leftover and
-     is_left_chain kernels each launched on that run, counted per replay
+     pair_grid kernels each launched on that run, counted per replay
      (replays times the launches the capture recorded; chain_cells,
      chain_dp, extract_kbest, walk_init, extend_leftover and
-     is_left_chain once, mr_pair_fold twice, walk_fold, walk_scan,
+     pair_grid once, mr_pair_fold twice, walk_fold, walk_scan,
      walk_pool, walk_commit and extend_core four times, tiny_dp five
      times per replay); reported:
      pairs/s, reads deferred
@@ -168,7 +173,7 @@ B = 1024 for the DP kernels, at the main path's recorded inputs for
 chain_cells, chain_dp, extract_kbest, mr_pair_fold, the walk's six
 kernels (tiny_dp's at its largest
 pool, phase 1's 4,096 rows), extend_core (phase 2's pair slots),
-extend_leftover (the leftover's chains) and is_left_chain;
+extend_leftover (the leftover's chains) and pair_grid (phase 2's reads);
 main_ms per launch at the row counts of the main path; chain_dp's
 buckets at CHAIN_BUCKETS).
 """
@@ -188,6 +193,7 @@ KERNEL_SOURCE = "circminer_tpu_torch/csrc/align_kernels.cu"
 WALK_SOURCE = "circminer_tpu_torch/csrc/walk.cu"
 WAVE_SOURCE = "circminer_tpu_torch/csrc/walk_wave.cu"
 EXTEND_SOURCE = "circminer_tpu_torch/csrc/extend.cu"
+PAIR_SOURCE = "circminer_tpu_torch/csrc/pair_grid.cu"
 SOURCES = {"chain_dp": "circminer_tpu_torch/csrc/chain_dp.cu",
            "mr_pair_fold": "circminer_tpu_torch/csrc/mr_fold.cu",
            "walk_fold": WALK_SOURCE, "tiny_dp": WALK_SOURCE,
@@ -196,24 +202,27 @@ SOURCES = {"chain_dp": "circminer_tpu_torch/csrc/chain_dp.cu",
            "chain_cells": "circminer_tpu_torch/csrc/chain_cells.cu",
            "extract_kbest": "circminer_tpu_torch/csrc/extract_kbest.cu",
            "extend_core": EXTEND_SOURCE, "extend_leftover": EXTEND_SOURCE,
-           "is_left_chain": EXTEND_SOURCE}
+           "pair_grid": PAIR_SOURCE}
 WALK_KERNELS = ("walk_fold", "tiny_dp", "walk_scan")
 # the walk's lane set-up and wave body (csrc/walk_wave.cu)
 WAVE_KERNELS = ("walk_init", "walk_pool", "walk_commit")
 # the chain stage's two ends: the prelude's cells and the k-best extraction
 END_KERNELS = ("chain_cells", "extract_kbest")
-# phase 2's extend wrap-up, the same wrap-up on the leftover extends, and
-# phase 2's chain-order walk
-EXTEND_KERNELS = ("extend_core", "extend_leftover", "is_left_chain")
+# phase 2's extend wrap-up and the same wrap-up on the leftover extends
+EXTEND_KERNELS = ("extend_core", "extend_leftover")
+# phase 2's per-read pair work: the grid, its slots, the chain order and
+# the l/r-mate bundles
+PAIR_KERNELS = ("pair_grid",)
 DP_KERNELS = ("xdrop", "edit_sc", "edit_end", "one_side")
 # in the gpu-full map
 FULL_KERNELS = ("xdrop", "one_side", "edit_end", "chain_dp", "mr_pair_fold",
-                *WALK_KERNELS, *WAVE_KERNELS, *END_KERNELS, *EXTEND_KERNELS)
+                *WALK_KERNELS, *WAVE_KERNELS, *END_KERNELS, *EXTEND_KERNELS,
+                *PAIR_KERNELS)
 # launches of one gpu-full step (and so of one replay)
 PER_STEP = {"chain_dp": 1, "mr_pair_fold": 2, "walk_fold": 4, "walk_scan": 4,
             "tiny_dp": 5, "chain_cells": 1, "extract_kbest": 1,
             "walk_init": 1, "walk_pool": 4, "walk_commit": 4,
-            "extend_core": 4, "extend_leftover": 1, "is_left_chain": 1}
+            "extend_core": 4, "extend_leftover": 1, "pair_grid": 1}
 # the keys of every line of the reference bench (bench.py:329-343)
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "executor",
               "backend", "n_pairs", "genome_len", "events", "true_events",
@@ -246,8 +255,10 @@ REPLACES = {
     "extend_core": "circminer_tpu/ops/device_full.py:214",
     # device_full_finish's two _extend_core_flat calls (:1353-1370)
     "extend_leftover": "circminer_tpu/ops/device_full.py:1353",
-    # _is_left_chain's fori_loop (:845), called at :993
-    "is_left_chain": "circminer_tpu/ops/device_full.py:801",
+    # _phase2's pair grid (:875-908), rank and inverse (:910-926), grid_at
+    # (:928), side_fields (:964), _is_left_chain (:801, called at :993)
+    # and sel (:996)
+    "pair_grid": "circminer_tpu/ops/device_full.py:861",
 }
 
 
@@ -1251,7 +1262,7 @@ def extend_leftover_inputs(rng, B, KB1, NL):
 
 
 def is_left_chain_inputs(rng, B, KB1, NL, P, *, k=20):
-    """Adversarial inputs of the chain-order walk (``is_left_chain``,
+    """Adversarial inputs of the chain-order walk (``_is_left_chain_plain``,
     numpy): a read's chains start near one base (a few near I32MAX, where
     an end + k - 1 wraps), with fragment gaps from k - 3 to 3k, so that a
     pair's two chains are separated, touch (one's end one before the
@@ -1276,6 +1287,107 @@ def is_left_chain_inputs(rng, B, KB1, NL, P, *, k=20):
              r(0, KB1, (B, 2, P)).astype(np.int32)), dict(k=k))
 
 
+def pair_grid_inputs(rng, B, KB1, NL, P, *, k=20, NIV=60, ST=16, SP=16,
+                     NG=40, SEG_PAD=16):
+    """Adversarial inputs of phase 2's pair grid (``pair_grid``, numpy):
+    chain counts from 0 to past KB1; a read's chains within a spread of
+    none, a few thousand, tens of thousands or millions of bases, so that
+    none, some or all of its cells lie within MAXDISCRDTLEN (n_union 0, at
+    P and past it), a twentieth near I32MAX (lastr + k wraps); fragments
+    as ``is_left_chain_inputs`` makes them (separated, touching and
+    interleaved chains); intervals -1, from the read's own few (shared
+    tids and genes) and past NIV (clamped); tid lists from a pool of 12,
+    empty, short, full and counted past their pad, a tenth with a -1
+    inside; segment genes -1, past NG and past the interval's segment
+    count, segment counts past SP and SEG_PAD; genes around the reads,
+    some spanning everything; the other fields and flags random; defer
+    words with bits already set."""
+    import numpy as np
+    from circminer_tpu_torch.config import MAXDISCRDTLEN
+    from circminer_tpu_torch.ops.device_full import SF_BOOL, SF_INT
+
+    def r(lo, hi, shape):
+        return rng.integers(lo, hi, size=shape).astype(np.int64)
+
+    def coin(p, shape):
+        return rng.random(shape) < p
+    C = (B, 4, KB1)
+    base = np.where(coin(0.05, B), I32MAX - 2 * k * NL,
+                    r(10 ** 5, 10 ** 8, B))
+    spread = rng.choice([0, 3000, 30000, 3 * 10 ** 6], size=B)
+    start = base[:, None, None] + (rng.random(C) * spread[:, None, None]
+                                   ).astype(np.int64) + r(-4 * k, 4 * k, C)
+    gaps = r(k - 3, 3 * k, (*C, NL))
+    gaps[..., 0] = 0
+    rp4 = start[..., None] + np.cumsum(gaps, axis=-1)
+    qp4 = np.cumsum(r(0, k + 4, (*C, NL)), axis=-1)
+    clen = r(0, NL + 1, C)
+    last = np.clip(clen - 1, 0, NL - 1)[..., None]
+    lastr = np.take_along_axis(rp4, last, -1)[..., 0]
+    lastq = np.take_along_axis(qp4, last, -1)[..., 0]
+    lens4 = r(max(1, k * NL // 2), k * NL + 5, (B, 4))
+    # intervals: -1, one of the read's three, past NIV
+    pool = r(0, NIV, (B, 1, 1, 3))
+    pick = rng.random(C)
+    iv_l = np.select([pick < 0.2, pick < 0.25], [-1, NIV + r(0, 5, C)],
+                     np.take_along_axis(pool, r(0, 3, (*C, 1)), -1)[..., 0])
+    fields = dict(r0=rp4[..., 0], q0=qp4[..., 0], lastq=lastq, lastr=lastr,
+                  remain_beg=qp4[..., 0], remain_end=lens4[:, :, None]
+                  - (lastq + k), pos_l=rp4[..., 0], pos_r=lastr + k - 1,
+                  iv_l=iv_l, iv_r=np.where(coin(0.2, C), -1, r(0, NIV, C)),
+                  exon_len_l=r(-5, 200, C), exon_len_r=r(-5, 200, C),
+                  mid_dp=r(-1, 7, C), clen=clen)
+    sf_i = np.concatenate([np.stack([fields[n] for n in SF_INT], -1),
+                           r(-4, 10, (*C, 16))], -1)
+    sf_b = coin(0.5, (*C, len(SF_BOOL)))
+    cn4 = np.where(coin(0.1, (B, 4)), 0, r(0, KB1 + 3, (B, 4)))
+    defer = rng.choice([0, 1, 2, 1 << 5, 1 << 6, 3 << 5, 1 << 11], size=B)
+    # the annotation
+    ntid = rng.choice([0, 1, 2, 3, ST, ST + 5], size=NIV)
+    iv_tids = np.where(np.arange(ST)[None, :] < ntid[:, None],
+                       r(0, 12, (NIV, ST)), -1)
+    hole = coin(0.1, NIV)
+    iv_tids[hole, r(0, ST, int(hole.sum()))] = -1
+    nseg_true = r(0, max(SP, SEG_PAD) + 4, NIV)
+    iv_nseg = np.where(coin(0.8, NIV), np.minimum(nseg_true, SP),
+                       r(0, SP + 3, NIV))
+    seg_gene_p = np.select(
+        [np.arange(SP)[None, :] >= nseg_true[:, None],
+         coin(0.05, (NIV, SP)), coin(0.05, (NIV, SP))],
+        [-1, -1, NG + r(0, 3, (NIV, SP))], r(0, NG, (NIV, SP)))
+    centre = np.concatenate([base, r(0, I32MAX, NG)])[r(0, B + NG, NG)]
+    gene_start = np.clip(centre - r(0, 3 * 10 ** 6, NG), 0, I32MAX)
+    gene_end = np.clip(centre + r(0, 3 * 10 ** 6, NG), 0, I32MAX)
+    wide = coin(0.1, NG)
+    gene_start[wide], gene_end[wide] = 0, I32MAX
+    # a tenth of the chains span exactly a gene of their read's first
+    # interval (both bounds of the containment test at equality)
+    ivc = np.clip(pool[:, 0, 0, 0], 0, NIV - 1)
+    g = np.clip(seg_gene_p[ivc, 0], 0, NG - 1)[:, None, None] \
+        + np.zeros(C, np.int64)
+    snap = coin(0.1, C)
+    fields["r0"] = np.where(snap, gene_start[g], fields["r0"])
+    fields["lastr"] = np.where(snap, gene_end[g] - k, fields["lastr"])
+    # a fifth of the reads with a pair at tlen MAXDISCRDTLEN, a fifth at
+    # one past it (orientation 0: chains (0, 0) and (3, 0); 1: (2, 0) and
+    # (1, 0))
+    for fr, vr, past in ((0, 3, 0), (2, 1, 1)):
+        edge = coin(0.2, B)
+        fs, r0, lastr = (fields["r0"][:, fr, 0], fields["r0"][:, vr, 0],
+                         fields["lastr"][:, vr, 0])
+        r0[edge] = fs[edge] + 1
+        lastr[edge] = fs[edge] + MAXDISCRDTLEN + past - k
+    sf_i[..., SF_INT.index("r0")] = fields["r0"]
+    sf_i[..., SF_INT.index("lastr")] = fields["lastr"]
+    i32 = np.int32
+    return ((_wrap32(sf_i), sf_b, _wrap32(rp4), qp4.astype(i32),
+             cn4.astype(i32), lens4.astype(i32), defer.astype(i32),
+             iv_tids.astype(i32), ntid.astype(i32), nseg_true.astype(i32),
+             iv_nseg.astype(i32), seg_gene_p.astype(i32),
+             gene_start.astype(i32), gene_end.astype(i32)),
+            dict(k=k, P=P, SEG_PAD=SEG_PAD))
+
+
 # the chain DP's adversarial sweep, (S, NL, P, rows): the gpu-chain
 # buckets' S (16, 128, 500), lists of reads up to 300 bases at k = 20 (NL
 # up to 15), P = seg_pad 16 (registers), 3 and 20 (the scan from memory)
@@ -1295,9 +1407,9 @@ FOLD_STEP_OPS = 100
 def tensor_kernel_calls(name, args, kw):
     """(kernel wrapper call, plain version call) of a ``launch_tensors``
     kernel (chain_dp, mr_pair_fold, one of WALK_KERNELS, WAVE_KERNELS,
-    END_KERNELS or EXTEND_KERNELS) on these arguments, each returning a
-    tuple of tensors (walk_commit's: the events and counts it updates in
-    place on copies of its inputs', then the new state)."""
+    END_KERNELS, EXTEND_KERNELS or PAIR_KERNELS) on these arguments, each
+    returning a tuple of tensors (walk_commit's: the events and counts it
+    updates in place on copies of its inputs', then the new state)."""
     from circminer_tpu_torch.ops import chain_device as cd
     from circminer_tpu_torch.ops import device_finish as fin
     from circminer_tpu_torch.ops import device_full as df
@@ -1316,9 +1428,9 @@ def tensor_kernel_calls(name, args, kw):
            "extend_core": (df.extend_core, df._extend_core_plain),
            "extend_leftover": (df.extend_leftover,
                                df._extend_leftover_plain),
-           "is_left_chain": (df.is_left_chain, df._is_left_chain_plain)}
+           "pair_grid": (df.pair_grid, df._pair_grid_plain)}
     kern, plain = fns[name]
-    if name in (*WALK_KERNELS, "is_left_chain"):       # one tensor out
+    if name in WALK_KERNELS:                   # one tensor out
         return (lambda: (kern(*args, **kw),), lambda: (plain(*args, **kw),))
     if name == "walk_commit":
         def commit(fn):
@@ -1573,8 +1685,7 @@ def phase_chain_ends(device, seed=23):
 # left, share of engine lanes) at the main path's 4,096 x 2 x 8 slots for
 # every family with chr21's ~5% engine lanes, and at ragged shapes with no,
 # half and every lane held by the engine; extend_leftover (B, KB1, NL) at
-# chr21's 4,096 x 4 x 7 chains of NL = 6 and ragged; is_left_chain (B, KB1,
-# NL, P_MAX[, k]) at chr21's 4,096 x 2 x 8 slots, NL 1-40, k 20 and 3
+# chr21's 4,096 x 4 x 7 chains of NL = 6 and ragged
 EXTEND_SWEEP = {
     "extend_core": ((4096, 8, 0, True, 0.05), (4096, 8, 1, True, 0.05),
                     (4096, 8, 2, False, 0.05), (4096, 8, 3, False, 0.05),
@@ -1582,9 +1693,6 @@ EXTEND_SWEEP = {
                     (257, 8, 2, True, 0.9), (64, 16, 3, False, 0.0)),
     "extend_leftover": ((4096, 7, 6), (33, 3, 1), (1, 1, 15),
                         (300, 16, 15)),
-    "is_left_chain": ((4096, 7, 6, 8), (33, 3, 1, 2), (64, 7, 15, 8),
-                      (64, 5, 16, 3), (40, 4, 17, 8), (16, 7, 40, 5, 3),
-                      (1, 1, 1, 1), (257, 7, 2, 9, 3)),
 }
 
 
@@ -1597,26 +1705,25 @@ def extend_case(name, spec, device, seed):
         B, P, fam, left, active = spec
         arrs, kw = extend_core_inputs(rng, B, P, fam=fam, left=left,
                                       active=active)
-    elif name == "extend_leftover":
-        arrs, kw = extend_leftover_inputs(rng, *spec)
     else:
-        B, KB1, NL, P, *k = spec
-        arrs, kw = is_left_chain_inputs(rng, B, KB1, NL, P, k=(k or [20])[0])
+        arrs, kw = extend_leftover_inputs(rng, *spec)
     return [torch.from_numpy(np.require(a, requirements="C")).to(device)
             for a in arrs], kw
 
 
-def phase_extend(device, seed=29):
-    """Phase 2 for phase 2's extend kernels (extend_core, extend_leftover,
-    is_left_chain): each bit-equal to its plain version on the
-    card over EXTEND_SWEEP, once eagerly and once replayed from a captured
-    CUDA graph (its outputs overwritten before the replay)."""
+def phase_extend(device, seed=29, sweep=None, case=None, what=None):
+    """Phase 2 for phase 2's extend kernels (extend_core, extend_leftover;
+    or, with ``sweep``, ``case`` and ``what``, another sweep's kernels):
+    each bit-equal to its plain version on the card over EXTEND_SWEEP,
+    once eagerly and once replayed from a captured CUDA graph (its
+    outputs overwritten before the replay)."""
     import torch
     t0 = time.perf_counter()
     n = 0
-    for name, specs in EXTEND_SWEEP.items():
+    for name, specs in (sweep or EXTEND_SWEEP).items():
         for k, spec in enumerate(specs):
-            args, kw = extend_case(name, spec, device, seed + 43 * k)
+            args, kw = (case or extend_case)(name, spec, device,
+                                             seed + 43 * k)
             kern, plain = tensor_kernel_calls(name, args, kw)
             hold_outputs(name, kern, plain, f" ({spec})")
             graph = torch.cuda.CUDAGraph()
@@ -1627,13 +1734,48 @@ def phase_extend(device, seed=29):
             graph.replay()
             hold_outputs(name, lambda: out, plain, f" ({spec}, replayed)")
             n += 1
-    log(f"[kernels] extend_core (phase 2's families), extend_leftover "
-        f"(the leftover extends) and is_left_chain bit-equal to plain, "
-        f"eagerly and replayed from a CUDA graph, over {n} cases "
-        f"{EXTEND_SWEEP} ({time.perf_counter() - t0:.1f} s; adversarial "
-        f"inputs: "
-        f"extend_core_inputs, extend_leftover_inputs, "
-        f"is_left_chain_inputs)")
+    what = what or ("extend_core (phase 2's families) and extend_leftover "
+                    "(the leftover extends), adversarial inputs from "
+                    "extend_core_inputs and extend_leftover_inputs")
+    log(f"[kernels] {what}: bit-equal to plain, eagerly and replayed from a "
+        f"CUDA graph, over {n} cases {sweep or EXTEND_SWEEP} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+# phase 2's pair grid's adversarial sweep, (B, KB1, NL, P_MAX, {k, ST, SP,
+# SEG_PAD}): chr21's 4,096 reads of KB1 = 7 chains, NL = 6 and P_MAX = 8;
+# KB1 = 9 and 12 (81 and 144 cells: the rank carried over three and five
+# 32-cell chunks), P_MAX past 32 and past KB1^2 (slots past every cell),
+# one read of one chain, NL past 16, tid lists past 32 and pads of 3 and 4
+# (lists over their pads), SEG_PAD other than the segment lists' width
+PAIR_SWEEP = {
+    "pair_grid": ((4096, 7, 6, 8, {}), (33, 3, 1, 2, dict(ST=4, SP=3,
+                                                          SEG_PAD=3)),
+                  (64, 9, 15, 8, {}), (40, 12, 4, 40, dict(k=3)),
+                  (1, 1, 1, 1, {}), (257, 7, 17, 9, dict(ST=33, SP=5,
+                                                         SEG_PAD=8)),
+                  (100, 7, 6, 60, {})),
+}
+
+
+def pair_case(name, spec, device, seed):
+    """(tensors on ``device``, kw) of one PAIR_SWEEP case."""
+    import numpy as np
+    import torch
+    B, KB1, NL, P, kw = spec
+    arrs, kw = pair_grid_inputs(np.random.default_rng(seed), B, KB1, NL, P,
+                                **kw)
+    return [torch.from_numpy(np.require(a, requirements="C")).to(device)
+            for a in arrs], kw
+
+
+def phase_pair(device, seed=31):
+    """Phase 2 for phase 2's pair grid (pair_grid): bit-equal to its plain
+    version on the card over PAIR_SWEEP, eagerly and replayed from a
+    captured CUDA graph."""
+    phase_extend(device, seed, PAIR_SWEEP, pair_case,
+                 "pair_grid (phase 2's grid, slots, chain order and mate "
+                 "bundles), adversarial inputs from pair_grid_inputs")
 
 
 # gpu-chain's occupancy buckets above S = 16 at their row chunks
@@ -1802,11 +1944,8 @@ def walk_work(name, args, kw):
 
 
 # floors of the extend kernels' int32 operations: per extend of a slot
-# (extend_one's compares, selects and wrapped sums), per slot of the
-# chain-order walk (its gathers' index arithmetic, the ends and the overlap
-# test, without the walk's steps)
+# (extend_one's compares, selects and wrapped sums)
 EXT_EXTEND_OPS = 60
-EXT_CHAIN_OPS = 30
 
 
 def extend_work(name, args, kw):
@@ -1816,8 +1955,7 @@ def extend_work(name, args, kw):
     flag, the walk DP where it can be taken and the fold's eight rows and
     overflow bit where the lane is active; its four outputs.
     extend_leftover: per chain both sides' position, length, flag and
-    genomic DP, est_mid, and both sides' outputs.  is_left_chain:
-    ``left_chain_bytes``."""
+    genomic DP, est_mid, and both sides' outputs."""
     import torch
     if name == "extend_core":
         (pos, _, _, _, has_tids, _, _, covered, wx, walk_inb, gen_inb,
@@ -1830,33 +1968,41 @@ def extend_work(name, args, kw):
         nbytes = n * (6 * 4 + 5 + 4 * 4) + int(wx.sum()) + n_wdp * 16 \
             + n_act * (8 * 4 + 1) + n * (1 + 4 + 6 * 4 + 1)
         return nbytes, n * EXT_EXTEND_OPS
-    if name == "extend_leftover":
-        n = args[2].numel()
-        return n * (5 * 4 + 2 + 2 * 4 * 4 + 2 * (1 + 4 + 6 * 4)), \
-            2 * n * EXT_EXTEND_OPS
-    return left_chain_bytes(*args, **kw), args[4].numel() * EXT_CHAIN_OPS
+    n = args[2].numel()
+    return n * (5 * 4 + 2 + 2 * 4 * 4 + 2 * (1 + 4 + 6 * 4)), \
+        2 * n * EXT_EXTEND_OPS
 
 
-def left_chain_bytes(rp4, qp4, clen4, lens4, pi, pj, *, k):
-    """The bytes ``is_left_chain`` needs on these inputs: per slot pi, pj
-    and its answer; of each distinct chain its length and the positions
-    that some slot's walk reads (its first and last, and for a slot whose
-    chains are not separated, those its merge walk reaches); of each
-    distinct (chain, fragment) that a slot's overlap uses, its query
-    offset, and of each distinct read row those slots use, its length.
-    The merge walk is replayed here as the kernel runs it."""
+# floors of pair_grid's int32 operations: per grid cell (validity, tlen,
+# union, the rank's share), per tid compare and per segment of the
+# gene-span tests, per slot (its fields, the walk's ends and overlap), per
+# step of the merge walk, per bundle field written
+PG_CELL_OPS = 20
+PG_TID_OPS = 2
+PG_GENE_OPS = 4
+PG_SLOT_OPS = 30
+PG_STEP_OPS = 10
+PG_FIELD_OPS = 2
+
+
+def pair_walks(rp4, clen4, pcell, *, k):
+    """Replay ``_is_left_chain``'s merge walk on every slot of these
+    inputs as ``pair_grid``'s kernel runs it (a separated pair reads only
+    its chains' ends): per slot its forward and reverse chain's flat index
+    into [B * 4 * KB1], whether they are separated, the furthest fragment
+    each walk reads, the overlap's fragments (bi, bj) and the walk's steps,
+    each [B * 2 * P]."""
     import torch
     from circminer_tpu_torch.config import INF
-    dev = pi.device
+    dev = pcell.device
     B, _, KB1, NL = rp4.shape
-    P = pi.shape[2]
-    n = pi.numel()
+    P = pcell.shape[2]
+    n = pcell.numel()
     b = torch.arange(B, device=dev).view(B, 1, 1)
     o = torch.arange(2, device=dev).view(1, 2, 1)
-    row = (b * 4 + 2 * o).expand(B, 2, P).reshape(-1)
-    ca = (row * KB1 + pi.clamp(0, KB1 - 1).reshape(-1)).long()
-    cb = (((b * 4 + 3 - 2 * o) * KB1).expand(B, 2, P).reshape(-1)
-          + pj.clamp(0, KB1 - 1).reshape(-1)).long()
+    pi, pj = (pcell // KB1).reshape(-1), (pcell % KB1).reshape(-1)
+    ca = ((b * 4 + 2 * o) * KB1).expand(B, 2, P).reshape(-1) + pi
+    cb = ((b * 4 + 3 - 2 * o) * KB1).expand(B, 2, P).reshape(-1) + pj
     pos, clen = rp4.reshape(-1, NL), clen4.reshape(-1)
     A, Bf, alen, blen = pos[ca], pos[cb], clen[ca], clen[cb]
 
@@ -1864,18 +2010,19 @@ def left_chain_bytes(rp4, qp4, clen4, lens4, pi, pj, *, k):
         return x.gather(1, idx.clamp(0, NL - 1).long()[:, None])[:, 0]
     km1 = k - 1
     a_end, b_end = at(A, alen - 1) + km1, at(Bf, blen - 1) + km1
-    near = ~((Bf[:, 0] > a_end) | (A[:, 0] > b_end))
-    i, j, reach_a, reach_b = (torch.zeros(n, dtype=torch.int32, device=dev)
-                              for _ in range(4))
+    apart = (Bf[:, 0] > a_end) | (A[:, 0] > b_end)
+    i, j, reach_a, reach_b, steps = (
+        torch.zeros(n, dtype=torch.int32, device=dev) for _ in range(5))
     bd = torch.full((n,), INF, dtype=torch.int32, device=dev)
     bi, bj = (torch.full((n,), -1, dtype=torch.int32, device=dev)
               for _ in range(2))
-    go = near.clone()
+    go = ~apart
     for _ in range(2 * NL):
         go &= (i < alen) & (j < blen)
         ai, bjv = at(A, i), at(Bf, j)
         reach_a = torch.where(go, torch.maximum(reach_a, i), reach_a)
         reach_b = torch.where(go, torch.maximum(reach_b, j), reach_b)
+        steps += go.int()
         a_first = ai + km1 < bjv
         b_first = ~a_first & (bjv + km1 < ai)
         d = torch.where(a_first, bjv - (ai + km1), ai - (bjv + km1))
@@ -1884,20 +2031,100 @@ def left_chain_bytes(rp4, qp4, clen4, lens4, pi, pj, *, k):
         bi, bj = torch.where(take, i, bi), torch.where(take, j, bj)
         i, j = i + (go & a_first), j + (go & b_first)
         go &= a_first | b_first
-    # per distinct chain: positions 0 .. its furthest reach, and its last
+    return ca, cb, apart, reach_a, reach_b, bi, bj, steps
+
+
+def pair_grid_bytes(sf_i, sf_b, rp4, qp4, cn4, lens4, defer, iv_tids,
+                    iv_ntid, iv_nseg_true, iv_nseg, seg_gene_p, gene_start,
+                    gene_end, *, k, P, SEG_PAD):
+    """The bytes ``pair_grid`` needs on these inputs, each read once and
+    each output written once: every field and flag of the chains that
+    some slot takes (a bundle's fields), r0 and lastr of every other chain
+    (the grid's tlen), iv_l of every other valid chain; of each slot
+    chain its first and last position and, where its pair is not
+    separated, the positions the merge walk reaches and the overlap's
+    query offset (``pair_walks``); cn4, lens4 and defer; each distinct
+    interval of a valid chain on an interval, its tid list, counts and
+    segment genes, and each distinct gene those name; every output."""
+    import torch
+    from circminer_tpu_torch.ops import device_full as df
+    B, _, KB1, NL = rp4.shape
+    NI, NB = sf_i.shape[3], sf_b.shape[3]
+    NIV, ST = iv_tids.shape
+    SP, NG = seg_gene_p.shape[1], gene_start.shape[0]
+    pcell = df._pair_grid_plain(
+        sf_i, sf_b, rp4, qp4, cn4, lens4, defer, iv_tids, iv_ntid,
+        iv_nseg_true, iv_nseg, seg_gene_p, gene_start, gene_end, k=k, P=P,
+        SEG_PAD=SEG_PAD).slot_i[0]
+    ca, cb, apart, reach_a, reach_b, bi, bj, _ = pair_walks(
+        rp4, sf_i[..., df.SF_INT.index("clen")], pcell, k=k)
+    n_ch = B * 4 * KB1
+    used = torch.zeros(n_ch, dtype=torch.bool, device=rp4.device)
+    used[ca], used[cb] = True, True
+    valid = (torch.arange(KB1, device=rp4.device)[None, None, :]
+             < cn4[:, :, None]).reshape(-1)
+    iv = sf_i[..., df.SF_INT.index("iv_l")].reshape(-1)
+    n_used = int(used.sum())
+    sf_bytes = n_used * (4 * NI + NB) + (n_ch - n_used) * 8 \
+        + int((valid & ~used).sum()) * 4
+    # the walks' positions (each distinct chain's first to its furthest
+    # reach, and its last) and the overlaps' query offsets
+    clen = sf_i[..., df.SF_INT.index("clen")].reshape(-1)
     last = (clen - 1).clamp(0, NL - 1)
-    reach = torch.zeros(clen.numel(), dtype=torch.int32, device=dev)
-    used = torch.zeros(clen.numel(), dtype=torch.bool, device=dev)
+    reach = torch.zeros(n_ch, dtype=torch.int32, device=rp4.device)
+    near = ~apart
     for c, r in ((ca, reach_a), (cb, reach_b)):
-        reach.scatter_reduce_(0, c, r, "amax")
-        used[c] = True
+        reach.scatter_reduce_(0, c[near], r[near], "amax")
     n_pos = int(((reach + 1 + (last > reach)) * used).sum())
     offs = torch.cat([ca[near] * NL + bi[near].clamp(0, NL - 1),
                       cb[near] * NL + bj[near].clamp(0, NL - 1)])
     n_q = int(torch.unique(offs).numel())
-    n_read = int(torch.unique(row[near]).numel())
-    return n * (2 * 4 + 1) + int(used.sum()) * 4 + n_pos * 4 + n_q * 4 \
-        + n_read * 4
+    # the annotation rows of valid chains on intervals, and their genes
+    ivs = torch.unique(iv[valid & (iv >= 0)].clamp(0, NIV - 1))
+    g = seg_gene_p[ivs.long()]
+    named = (torch.arange(SP, device=g.device)[None, :]
+             < iv_nseg[ivs.long()][:, None]) & (g >= 0)
+    n_gene = int(torch.unique(g[named].clamp(0, NG - 1)).numel())
+    anno = ivs.numel() * (4 * ST + 12 + 4 * SP) + n_gene * 8
+    KK, S = KB1 * KB1, B * 2 * P
+    outs = B * 2 * KK * (3 + 4) + B * 2 * KB1 * 2 + S * (4 * 4 + 5) \
+        + B * 2 * 4 + 2 * S * (4 * len(df.MATE_INT) + NB) + B * 4
+    return sf_bytes + 4 * (n_pos + n_q) + B * (16 + 16 + 4) + anno + outs
+
+
+def pair_grid_work(sf_i, sf_b, rp4, qp4, cn4, lens4, defer, iv_tids,
+                   iv_ntid, iv_nseg_true, iv_nseg, seg_gene_p, gene_start,
+                   gene_end, *, k, P, SEG_PAD):
+    """int32 operations ``pair_grid`` needs on these inputs: per cell
+    PG_CELL_OPS; per valid cell of two chains on intervals the reference's
+    ST^2 tid compares, per valid cell side on an interval its SP segment
+    tests; per slot PG_SLOT_OPS and PG_STEP_OPS a step of its merge walk;
+    per bundle field PG_FIELD_OPS."""
+    import torch
+    from circminer_tpu_torch.ops import device_full as df
+    B, _, KB1, NL = rp4.shape
+    ST, SP = iv_tids.shape[1], seg_gene_p.shape[1]
+    kb = torch.arange(KB1, device=rp4.device)
+    rows = torch.tensor([[0, 3], [2, 1]], device=rp4.device)  # (fr, vr)
+    cn = cn4[:, rows]                                     # [B, 2, 2]
+    iv = sf_i[..., df.SF_INT.index("iv_l")][:, rows]      # [B, 2, 2, KB1]
+    on = (kb < cn[..., None]) & (iv >= 0)
+    ok = (kb < cn[..., None])
+    f_on, v_on = on[:, :, 0, :, None], on[:, :, 1, None, :]
+    gv = ok[:, :, 0, :, None] & ok[:, :, 1, None, :]
+    n_tid = int((gv & f_on & v_on).sum())
+    n_gene = int((gv & f_on).sum() + (gv & v_on).sum())
+    pcell = df._pair_grid_plain(
+        sf_i, sf_b, rp4, qp4, cn4, lens4, defer, iv_tids, iv_ntid,
+        iv_nseg_true, iv_nseg, seg_gene_p, gene_start, gene_end, k=k, P=P,
+        SEG_PAD=SEG_PAD).slot_i[0]
+    steps = pair_walks(rp4, sf_i[..., df.SF_INT.index("clen")], pcell,
+                       k=k)[-1]
+    S = B * 2 * P
+    return (B * 2 * KB1 * KB1 * PG_CELL_OPS + n_tid * ST * ST * PG_TID_OPS
+            + n_gene * SP * PG_GENE_OPS + S * PG_SLOT_OPS
+            + int(steps.sum()) * PG_STEP_OPS
+            + 2 * S * (len(df.MATE_INT) + len(df.SF_BOOL)) * PG_FIELD_OPS)
 
 
 # floors of the wave kernels' int32 operations: per flag of a compaction
@@ -2165,6 +2392,9 @@ def tensor_kernel_bound(name, args, kw):
         nbytes, ops = wave_work(name, args, kw)
     elif name in EXTEND_KERNELS:
         nbytes, ops = extend_work(name, args, kw)
+    elif name == "pair_grid":
+        nbytes, ops = pair_grid_bytes(*args, **kw), pair_grid_work(*args,
+                                                                    **kw)
     else:
         mr, pairs = args[0], args[1]
         B, _, P, F = pairs.shape
@@ -2180,12 +2410,13 @@ def recording_tensor_kernels(store):
     """Wrap the wrappers of the ``launch_tensors`` kernels (chain_cells,
     chain_dp, extract_kbest_device, mr_pair_fold, walk_fold_lanes, tiny_dp,
     walk_scan, walk_init, walk_pool, walk_commit, extend_core,
-    extend_leftover, is_left_chain) where the step calls them, so that the
+    extend_leftover, pair_grid) where the step calls them, so that the
     first inputs of each (kernel, rows) are kept in ``store`` and every
     call is counted there; returns the function that undoes it.  A
     walk_fold's and walk_init's rows are its pool lanes, walk_scan's and
     walk_commit's its (slot, lane) pairs, walk_pool's its two pools' rows,
-    the extend kernels' their slots (extend_leftover's chains)."""
+    the extend kernels' their slots (extend_leftover's chains), pair_grid's
+    its reads."""
     from circminer_tpu_torch.ops import chain_device as cd
     from circminer_tpu_torch.ops import device_finish as fin
     from circminer_tpu_torch.ops import device_full as df
@@ -2200,13 +2431,12 @@ def recording_tensor_kernels(store):
              ("walk_commit", dw, "walk_commit"),
              ("extend_core", df, "extend_core"),
              ("extend_leftover", df, "extend_leftover"),
-             ("is_left_chain", df, "is_left_chain")]
+             ("pair_grid", df, "pair_grid")]
     saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in sites]
 
     def rows(name, args, kw):
-        if name in ("extend_core", "extend_leftover", "is_left_chain"):
-            return args[{"extend_core": 0, "extend_leftover": 2,
-                         "is_left_chain": 4}[name]].numel()
+        if name in EXTEND_KERNELS:
+            return args[{"extend_core": 0, "extend_leftover": 2}[name]].numel()
         if name == "walk_fold":
             return args[1].shape[1]
         if name in ("walk_scan", "walk_commit"):
@@ -2653,12 +2883,13 @@ WAVE_OUTS = {"walk_init": ("inv", "n_act", "over", "act", "p_live",
              "walk_commit": ("events", "nev", "ws_out")}
 IN_PLACE = ("events", "nev")
 AB_EXTEND = {"extend_core": ((4096, 8, 0, True, 0.05),),
-             "extend_leftover": ((4096, 7, 6),),
-             "is_left_chain": ((4096, 7, 6, 8),)}
-# the outputs of each extend kernel
+             "extend_leftover": ((4096, 7, 6),)}
+AB_PAIR = {"pair_grid": ((4096, 7, 6, 8, {}),)}
+# the outputs of each extend kernel and of pair_grid
 EXTEND_OUTS = {"extend_core": ("ok", "pos_out", "best", "defer"),
                "extend_leftover": ("ok", "pos", "best"),
-               "is_left_chain": ("out",)}
+               "pair_grid": ("grid_b", "tlen_g", "valid", "slot_i", "slot_b",
+                             "n_union", "mate_i", "mate_b", "defer_out")}
 AB_ITERS = {"chain_dp": 20, "mr_pair_fold": 50, "chain_cells": 50,
             "extract_kbest": 50}
 
@@ -2708,13 +2939,15 @@ def ab_cases(names, w=3, seed=19):
         [rec] = chr21_step_inputs("chain_dp")
         yield chain_case(f"chr21 step, b={rec['args'][0].shape[0]}",
                          rec["args"], rec["kw"])
-    for name in (*WALK_KERNELS, *WAVE_KERNELS, *END_KERNELS, *AB_EXTEND):
+    for name in (*WALK_KERNELS, *WAVE_KERNELS, *END_KERNELS, *AB_EXTEND,
+                 *AB_PAIR):
         if name not in names:
             continue
         spec = _ext.KERNELS[name]
         case_of, specs = ((end_case, AB_END[name]) if name in END_KERNELS
                           else (extend_case, AB_EXTEND[name])
                           if name in AB_EXTEND
+                          else (pair_case, AB_PAIR[name]) if name in AB_PAIR
                           else (walk_case, AB_WALK[name]))
         cases = [(str(case), *case_of(name, case, torch.device("cuda"),
                                       seed + k))
@@ -4058,6 +4291,7 @@ def main() -> int:
         phase_walk(device)
         phase_chain_ends(device)
         phase_extend(device)
+        phase_pair(device)
         buckets = phase_chain_buckets(device)
         lap("2 kernels")
         cfg, gi, db, reads, truth = chr21_setup()

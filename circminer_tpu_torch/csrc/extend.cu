@@ -1,5 +1,4 @@
-// Phase 2's extend wrap-up and chain-order walk, hand-written for Hopper
-// (sm_90a).
+// Phase 2's extend wrap-up, hand-written for Hopper (sm_90a).
 //
 //   cm_extend_core      replaces circminer_tpu/ops/device_full.py::
 //                       _extend_core (:214, flat :327; XLA-lowered inside
@@ -12,40 +11,31 @@
 //                       (:1353-1370): a thread runs a chain's left extend,
 //                       then its right one, whose ed_th the left one's ed
 //                       sets.
-//   cm_is_left_chain    replaces _is_left_chain (:801, its fori_loop at
-//                       :845; called at :993): utils.cpp:827-887's merge
-//                       walk over a pair slot's two chains.
 //
-// Their plain versions are ops/device_full.py::_extend_core_plain,
-// _extend_leftover_plain and _is_left_chain_plain.
+// Their plain versions are ops/device_full.py::_extend_core_plain and
+// _extend_leftover_plain.  (The chain-order walk that was here is part of
+// csrc/pair_grid.cu.)
 //
 // Interface.  The side bundle's fields as phase 2 holds them, one int32 or
 // bool (one byte) tensor each, the walk fold's raw [8, N] rows, the pool
 // overflow mask [4N] and the lane masks [4, N] (the family's row read in
 // place); the leftover reads phase 1's fragments (pos_l = rp4[c][0],
 // remain_beg = qp4[c][0]) and its [N, 2, 2] DP fields where they lie.
-// is_left_chain reads the chains' fragments through the slot's pi / pj
-// and _mate_rows' rows (forward mate 2o, reverse mate 3 - 2o).
 //
 // Layout.  A thread a slot (a chain for the leftover), slots in order, so
 // that a warp's loads of each field are one contiguous run; no shared
 // memory.  extend_core's fold rows and the walk DP are read only where the
-// slot's lane is active or its walk DP can be taken.  is_left_chain reads
-// a chain's positions where they lie, only those its walk reaches (an
-// unrolled register copy of the NL positions, picked by a select, was
-// slower at chr21's NL = 6); its walk stops when it is done, where the
-// reference's state stops changing.
+// slot's lane is active or its walk DP can be taken.
 //
 // What bounds them.  Their bytes: ~125 B a slot for extend_core, ~110 B a
-// chain for the leftover; for is_left_chain ~5 words a slot and the
-// positions its walks reach, each chain's once.  Every thread does a few
-// dozen integer operations.
+// chain for the leftover.  Every thread does a few dozen integer
+// operations.
 //
 // Parity.  Every sum that can wrap (pos + length against an I32MAX bound,
-// the triv branch's bound, the walk's distances) is int32 with
-// two's-complement wrap-around, composed in uint32; every select keeps the
-// reference's order (_upd_by_score's position tie-break by side, the
-// engine's best over the walk DP's, consecutive gating the genomic try).
+// the triv branch's bound) is int32 with two's-complement wrap-around,
+// composed in uint32; every select keeps the reference's order
+// (_upd_by_score's position tie-break by side, the engine's best over the
+// walk DP's, consecutive gating the genomic try).
 
 #ifndef CM_EXTEND_LAUNCH
 #include <cuda_runtime.h>
@@ -58,7 +48,6 @@ namespace {
 
 constexpr int32_t I32MAX = 2147483647;
 constexpr int32_t NEG_SCORE = -1000000000;  // -INF (config.py)
-constexpr int32_t INF = 1000000000;
 constexpr int EXT_THREADS = 256;
 enum FoldRow { FD_POS, FD_ED, FD_SCLEN, FD_INDEL, FD_QCOV, FD_SCORE,
                FD_CONSEC, FD_DEFER, FD_ROWS };  // device_walk.FOLD_OUT
@@ -69,10 +58,6 @@ __device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
 
 __device__ __forceinline__ int32_t wsub(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a - (uint32_t)b);
-}
-
-__device__ __forceinline__ int clampi(int32_t x, int lo, int hi) {
-  return x < lo ? lo : (x > hi ? hi : (int)x);
 }
 
 struct Dp {
@@ -295,70 +280,6 @@ __global__ void __launch_bounds__(EXT_THREADS)
   store_best(lo.best + 6 * N, i, N, best);
 }
 
-__global__ void __launch_bounds__(EXT_THREADS)
-    is_left_chain_kernel(const int32_t* __restrict__ rp4,
-                         const int32_t* __restrict__ qp4,
-                         const int32_t* __restrict__ clen4,
-                         const int32_t* __restrict__ lens4,
-                         const int32_t* __restrict__ pi,
-                         const int32_t* __restrict__ pj,
-                         uint8_t* __restrict__ out, long long n, int KB1,
-                         int NL, int P, int k) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  const long long b = t / (2 * P);
-  const int o = (int)((t / P) % 2);
-  const int fr = 2 * o, vr = 3 - 2 * o;  // _mate_rows: frows, vrows
-  const long long ca = (b * 4 + fr) * KB1 + clampi(pi[t], 0, KB1 - 1);
-  const long long cb = (b * 4 + vr) * KB1 + clampi(pj[t], 0, KB1 - 1);
-  const int32_t* A = rp4 + ca * NL;  // the chains' fragment positions
-  const int32_t* Bf = rp4 + cb * NL;
-  const int32_t a_len = clen4[ca], b_len = clen4[cb];
-  const int32_t read_len = lens4[b * 4 + fr];
-  const int32_t km1 = k - 1;
-  const int32_t a_beg = A[0], b_beg = Bf[0];
-  const int32_t a_end = wadd(A[clampi(wsub(a_len, 1), 0, NL - 1)], km1);
-  const int32_t b_end = wadd(Bf[clampi(wsub(b_len, 1), 0, NL - 1)], km1);
-  const bool separated = b_beg > a_end || a_beg > b_end;
-  // the merge walk: the closest fragment pair, or the first overlap
-  int32_t i = 0, j = 0, bd = INF, bi = -1, bj = -1;
-  for (int step = 0; step < 2 * NL; ++step) {
-    if (!(i < a_len && j < b_len)) break;  // done: the state freezes
-    const int32_t ai_beg = A[clampi(i, 0, NL - 1)];
-    const int32_t bj_beg = Bf[clampi(j, 0, NL - 1)];
-    const int32_t ai_end = wadd(ai_beg, km1), bj_end = wadd(bj_beg, km1);
-    if (ai_end < bj_beg) {
-      const int32_t d = wsub(bj_beg, ai_end);
-      if (d < bd) {
-        bd = d;
-        bi = i;
-        bj = j;
-      }
-      ++i;
-    } else if (bj_end < ai_beg) {
-      const int32_t d = wsub(ai_beg, bj_end);
-      if (d < bd) {
-        bd = d;
-        bi = i;
-        bj = j;
-      }
-      ++j;
-    } else {  // overlap
-      bi = i;
-      bj = j;
-      break;
-    }
-  }
-  const int bic = clampi(bi, 0, NL - 1), bjc = clampi(bj, 0, NL - 1);
-  const int32_t a_bp = A[bic], b_bp = Bf[bjc];
-  const int32_t common = a_bp > b_bp ? a_bp : b_bp;
-  const int32_t a_ov = wadd(qp4[ca * NL + bic], wsub(common, a_bp));
-  const int32_t b_ov = wadd(qp4[cb * NL + bjc], wsub(common, b_bp));
-  const bool both_in = a_ov < read_len && b_ov < read_len && bi >= 0;
-  out[t] = separated ? a_beg < b_beg
-                     : (both_in ? a_ov >= b_ov : a_beg < b_beg);
-}
-
 inline unsigned grid_of(long long n) {
   return (unsigned)((n + EXT_THREADS - 1) / EXT_THREADS);
 }
@@ -416,21 +337,5 @@ extern "C" int cm_extend_leftover(
   CM_EXTEND_LAUNCH(extend_leftover_kernel, grid_of(N), EXT_THREADS,
                    (cudaStream_t)stream, lo, (long long)N, NL, max_ed, max_sc,
                    band);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int cm_is_left_chain(const void* rp4, const void* qp4,
-                                const void* clen4, const void* lens4,
-                                const void* pi, const void* pj, void* out,
-                                int B, int KB1, int NL, int P, int k,
-                                void* stream) {
-  const long long n = (long long)B * 2 * P;
-  if (n <= 0) return 0;
-  if (NL < 1 || KB1 < 1) return (int)cudaErrorInvalidValue;
-  CM_EXTEND_LAUNCH(is_left_chain_kernel, grid_of(n), EXT_THREADS,
-                   (cudaStream_t)stream, (const int32_t*)rp4,
-                   (const int32_t*)qp4, (const int32_t*)clen4,
-                   (const int32_t*)lens4, (const int32_t*)pi,
-                   (const int32_t*)pj, (uint8_t*)out, n, KB1, NL, P, k);
   return (int)cudaGetLastError();
 }

@@ -112,9 +112,13 @@ KERNELS = {
         ("rp4", "qp4", "pos_r", "remain_end", "est_mid", "genL_inb",
          "genR_inb", "dp_ed", "dp_sclen", "dp_indel", "dp_score", "ok", "pos",
          "best")),
-    "is_left_chain": Kernel(
-        "cm_is_left_chain", ("B", "KB1", "NL", "P", "k"),
-        ("rp4", "qp4", "clen4", "lens4", "pi", "pj", "out")),
+    "pair_grid": Kernel(
+        "cm_pair_grid", ("B", "KB1", "NL", "P", "k", "NIV", "ST", "SP",
+                         "SEG_PAD", "NG"),
+        ("sf_i", "sf_b", "rp4", "qp4", "cn4", "lens4", "defer", "iv_tids",
+         "iv_ntid", "iv_nseg_true", "iv_nseg", "seg_gene_p", "gene_start",
+         "gene_end", "grid_b", "tlen_g", "valid", "slot_i", "slot_b",
+         "n_union", "mate_i", "mate_b", "defer_out")),
 }
 DP_KERNELS = tuple(n for n, k in KERNELS.items() if k.tensors is None)
 I_KERNEL = 128  # DP extent of every kernel: cells i = 0 .. 127 of a diagonal

@@ -33,6 +33,9 @@ intermediate stays int32.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+from typing import NamedTuple
+
 import torch
 from torch.profiler import record_function
 
@@ -891,10 +894,6 @@ def _phase1(seqs, lens, hh, rp, qp, cl, sc10, cn, inc, mr_in,
                       B * 4 * KB1 * 4).reshape(shp5)
         for a, b in zip(dl, dr))
 
-    def side_dp(side, var):
-        return dict(ed=dp_ed[..., side, var], sclen=dp_scl[..., side, var],
-                    indel=dp_ind[..., side, var],
-                    score=dp_scr[..., side, var])
     return dict(
         B=B, NL=NL, KB1=KB1, valid=valid, clen=clen, q0=q0, r0=r0,
         lastq=lastq, lastr=lastr, remain_beg=remain_beg,
@@ -903,7 +902,7 @@ def _phase1(seqs, lens, hh, rp, qp, cl, sc10, cn, inc, mr_in,
         covered_l=covered_l, covered_r=covered_r, wxL=wxL, wxR=wxR,
         walkL_inb=walkL_inb, walkR_inb=walkR_inb, genL_inb=genL_inb,
         genR_inb=genR_inb, est_mid=est_mid, mid_dp=mid_dp,
-        side_dp=side_dp, dp=(dp_ed, dp_scl, dp_ind, dp_scr), defer=defer,
+        dp=(dp_ed, dp_scl, dp_ind, dp_scr), defer=defer,
         cn4=cn4, hh4=hh4, lens4=lens4,
         rp4=rp4, qp4=qp4, sc4=sc4, mr_in=mr_in,
     )
@@ -956,42 +955,14 @@ def _is_left_chain(a_rp, a_qp, a_len, b_rp, b_qp, b_len, read_len, NL, k):
                        torch.where(both_in, a_ov >= b_ov, a_beg < b_beg))
 
 
-def is_left_chain(rp4, qp4, clen4, lens4, pi, pj, *, k: int):
-    """Whether each pair slot's forward-mate chain is the left one
-    (``_is_left_chain`` on the slot's two chains, utils.cpp:827-887; the
-    reference's call at circminer_tpu/ops/device_full.py:993): rp4, qp4
-    int32 [B, 4, KB1, NL] the chains' fragments, clen4 int32 [B, 4, KB1]
-    their lengths, lens4 int32 [B, 4] the reads', pi / pj int32 [B, 2, P]
-    the slot's forward chain in row ``_mate_rows``' frows[o] and reverse
-    chain in vrows[o].  Returns bool [B, 2, P].  On a CPU tensor its plain
-    version (``_is_left_chain_plain``); on a CUDA tensor the
-    ``is_left_chain`` kernel (csrc/extend.cu), or a raise."""
-    if not pi.is_cuda:
-        return _is_left_chain_plain(rp4, qp4, clen4, lens4, pi, pj, k=k)
-    out = torch.empty(pi.shape, dtype=torch.bool, device=pi.device)
-    B, _, KB1, NL = rp4.shape
-    if pi.numel():
-        _ext.launch_tensors(
-            "is_left_chain",
-            is_left_chain_args(rp4, qp4, clen4, lens4, pi, pj, out),
-            (B, KB1, NL, pi.shape[2], k))
-    return out
-
-
-def is_left_chain_args(rp4, qp4, clen4, lens4, pi, pj, out):
-    """The (tensor, dtype, shape) arguments of the ``is_left_chain``
-    kernel, in its order."""
-    B, _, KB1, NL = rp4.shape
-    shp = (B, 2, pi.shape[2])
-    i32 = _i32
-    return [(rp4, i32, (B, 4, KB1, NL)), (qp4, i32, (B, 4, KB1, NL)),
-            (clen4, i32, (B, 4, KB1)), (lens4, i32, (B, 4)),
-            (pi, i32, shp), (pj, i32, shp), (out, torch.bool, shp)]
-
-
 def _is_left_chain_plain(rp4, qp4, clen4, lens4, pi, pj, *, k):
-    """The plain version of ``is_left_chain``: the slot's two chains
-    gathered, then ``_is_left_chain``."""
+    """Whether each pair slot's forward-mate chain is the left one
+    (the reference's call at circminer_tpu/ops/device_full.py:993): rp4,
+    qp4 int32 [B, 4, KB1, NL] the chains' fragments, clen4 int32
+    [B, 4, KB1] their lengths, lens4 int32 [B, 4] the reads', pi / pj
+    int32 [B, 2, P] the slot's forward chain in row ``_mate_rows``'
+    frows[o] and reverse chain in vrows[o]: the two chains gathered, then
+    ``_is_left_chain``.  Returns bool [B, 2, P]."""
     NL = rp4.shape[3]
     frows, vrows = _mate_rows(pi.device)
 
@@ -1012,53 +983,164 @@ SF_NAMES = ("r0", "q0", "lastq", "lastr", "remain_beg", "remain_end",
             "pos_l", "pos_r", "iv_l", "iv_r", "exon_len_l", "exon_len_r",
             "covered_l", "covered_r", "wxL", "wxR", "walkL_inb", "walkR_inb",
             "genL_inb", "genR_inb", "mid_dp", "clen")
-SF_BOOL = {"covered_l", "covered_r", "wxL", "wxR", "walkL_inb",
-           "walkR_inb", "genL_inb", "genR_inb"}
+SF_BOOL = ("covered_l", "covered_r", "wxL", "wxR", "walkL_inb",
+           "walkR_inb", "genL_inb", "genR_inb")
 SF_DP = [(side, var, f) for side in (0, 1) for var in (0, 1)
          for f in DP_KEYS]
+# pair_grid's per-chain stacks: the int fields (csrc/pair_grid.cu's SfInt),
+# then the DP fields in SF_DP's order; the flags in SF_BOOL's.  A mate
+# bundle's int fields add the read length and the absolute seqs row.
+SF_INT = tuple(n for n in SF_NAMES if n not in SF_BOOL)
+MATE_INT = SF_INT + tuple(f"dp{side}{var}_{f}" for side, var, f in SF_DP) \
+    + ("seq_len", "arow")
+PAIR_SMEM_MAX = 232448     # a CUDA block's opt-in shared memory on sm_90
 
 
-def _phase2(st, ad, fa, seqs, genome, *, k, max_ed, max_sc, band, P_MAX,
-            KB, mat, mis, ind, xd, EW, KSCAN, WPP, MIDP, ENDP,
-            upto="full"):
-    """Pair-union table + pair-level paired extension (filter.cpp:485-551
-    + extend.cpp:37-125) over [B, 2, P_MAX].  Multi-exon extension walks
-    run through the walk engine (ops/device_walk.py).  upto in ("p2_grid",
-    "p2_gath", "p2_walk", "p2_ext") returns the reference's state at that
-    cut point instead."""
-    from .device_walk import walk_fold_rows, walk_waves
+class PairGrid(NamedTuple):
+    """``pair_grid``'s outputs over B reads, their 2 orientations, KB1
+    chains a mate and P pair slots."""
+    grid_b: torch.Tensor   # bool [3, B, 2, KB1, KB1]: same_tr, sgf, sgr
+    tlen_g: torch.Tensor   # int32 [B, 2, KB1, KB1]
+    valid: torch.Tensor    # bool [2, B, 2, KB1]: fvalid, rvalid
+    slot_i: torch.Tensor   # int32 [4, B, 2, P]: pcell, p_tlen, p_fiv, p_riv
+    # bool [5, B, 2, P]: pvalid, p_same_tr, p_sgf, p_sgr, fwd_left
+    slot_b: torch.Tensor
+    n_union: torch.Tensor  # int32 [B, 2]
+    mate_i: torch.Tensor   # int32 [2, len(MATE_INT), B, 2, P]: l, r mate
+    mate_b: torch.Tensor   # bool [2, len(SF_BOOL), B, 2, P]
+    defer: torch.Tensor    # int32 [B]
 
-    B, KB1 = st["B"], st["KB1"]
-    dev = seqs.device
-    rp4, qp4, cn4 = st["rp4"], st["qp4"], st["cn4"]
-    defer = st["defer"]
-    NIV = ad.iv_spos.shape[0]
 
+def pair_grid_smem(KB1, NL, ST, SP, P):
+    """Bytes of shared memory ``pair_grid``'s kernel stages for a read
+    (csrc/pair_grid.cu's pg_smem)."""
+    words = 4 * KB1 * (len(MATE_INT) - 2 + 2 * NL + ST + 2 * SP + 3) \
+        + ((2 * P + 12 + 3) & ~3)
+    nbytes = 4 * KB1 * (len(SF_BOOL) + SP + 1) + 2 * KB1 * KB1 + 2 * P
+    return (4 * words + nbytes + 15) // 16 * 16
+
+
+def pair_grid(sf_i, sf_b, rp4, qp4, cn4, lens4, defer, iv_tids, iv_ntid,
+              iv_nseg_true, iv_nseg, seg_gene_p, gene_start, gene_end, *,
+              k: int, P: int, SEG_PAD: int):
+    """Phase 2's per-read pair work (the reference's ``_phase2``,
+    circminer_tpu/ops/device_full.py:861-1000): the [B, 2, KB1, KB1] pair
+    grid (i a forward-mate chain in ``_mate_rows``' frows[o], j a
+    reverse-mate chain in vrows[o]), its union ranked in row-major order
+    into P slots (DEF_UNION past P, DEF_PANNO for a union cell on an
+    interval whose lists overflow their pads), the slots' fields,
+    ``_is_left_chain`` on each slot's two chains and the l-mate / r-mate
+    bundles it selects.  sf_i int32 [B, 4, KB1, len(SF_INT) + 16] and
+    sf_b bool [B, 4, KB1, len(SF_BOOL)] the chains' fields; rp4, qp4 int32
+    [B, 4, KB1, NL]; cn4, lens4 int32 [B, 4]; defer int32 [B]; the
+    annotation's iv_tids [NIV, ST], iv_ntid, iv_nseg_true, iv_nseg [NIV],
+    seg_gene_p [NIV, SP], gene_start, gene_end [NG], int32; SEG_PAD the
+    annotation's segment pad.  Returns a ``PairGrid``.  On a CPU tensor
+    its plain version (``_pair_grid_plain``); on a CUDA tensor the
+    ``pair_grid`` kernel (csrc/pair_grid.cu), or a raise."""
+    ins = (sf_i, sf_b, rp4, qp4, cn4, lens4, defer, iv_tids, iv_ntid,
+           iv_nseg_true, iv_nseg, seg_gene_p, gene_start, gene_end)
+    if not sf_i.is_cuda:
+        return _pair_grid_plain(*ins, k=k, P=P, SEG_PAD=SEG_PAD)
+    B, _, KB1, NL = rp4.shape
+    NIV, ST = iv_tids.shape
+    SP, NG = seg_gene_p.shape[1], gene_start.shape[0]
+    if min(KB1, NL, P, NIV, ST, SP, NG) < 1:
+        raise ValueError(f"pair_grid needs non-empty dimensions, got KB1 "
+                         f"{KB1}, NL {NL}, P {P}, NIV {NIV}, ST {ST}, SP "
+                         f"{SP}, NG {NG}")
+    smem = pair_grid_smem(KB1, NL, ST, SP, P)
+    if smem > PAIR_SMEM_MAX:
+        raise ValueError(f"pair_grid stages {smem} B a read (KB1 {KB1}, NL "
+                         f"{NL}, ST {ST}, SP {SP}, P {P}), above a block's "
+                         f"{PAIR_SMEM_MAX} B of shared memory")
+    if any(x.data_ptr() % 16 for x in (sf_i, sf_b, rp4, qp4)):
+        raise ValueError("pair_grid stages sf_i, sf_b, rp4 and qp4 as "
+                         "16-byte words: each must start on a 16-byte "
+                         "boundary")
+    dev, b8 = sf_i.device, torch.bool
+
+    def empty(shape, dtype=_i32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    out = PairGrid(
+        empty((3, B, 2, KB1, KB1), b8), empty((B, 2, KB1, KB1)),
+        empty((2, B, 2, KB1), b8), empty((4, B, 2, P)),
+        empty((5, B, 2, P), b8), empty((B, 2)),
+        empty((2, len(MATE_INT), B, 2, P)),
+        empty((2, len(SF_BOOL), B, 2, P), b8), empty((B,)))
+    if B:
+        _ext.launch_tensors("pair_grid", pair_grid_args(*ins, *out),
+                            (B, KB1, NL, P, k, NIV, ST, SP, SEG_PAD, NG))
+    return out
+
+
+def pair_grid_args(sf_i, sf_b, rp4, qp4, cn4, lens4, defer, iv_tids,
+                   iv_ntid, iv_nseg_true, iv_nseg, seg_gene_p, gene_start,
+                   gene_end, grid_b, tlen_g, valid, slot_i, slot_b, n_union,
+                   mate_i, mate_b, defer_out):
+    """The (tensor, dtype, shape) arguments of the ``pair_grid`` kernel, in
+    its order."""
+    B, _, KB1, NL = rp4.shape
+    NIV, ST = iv_tids.shape
+    P = slot_i.shape[3]
+    i32, b8 = _i32, torch.bool
+    return [(sf_i, i32, (B, 4, KB1, len(MATE_INT) - 2)),
+            (sf_b, b8, (B, 4, KB1, len(SF_BOOL))),
+            (rp4, i32, (B, 4, KB1, NL)), (qp4, i32, (B, 4, KB1, NL)),
+            (cn4, i32, (B, 4)), (lens4, i32, (B, 4)), (defer, i32, (B,)),
+            (iv_tids, i32, (NIV, ST)), (iv_ntid, i32, (NIV,)),
+            (iv_nseg_true, i32, (NIV,)), (iv_nseg, i32, (NIV,)),
+            (seg_gene_p, i32, (NIV, seg_gene_p.shape[1])),
+            (gene_start, i32, gene_start.shape),
+            (gene_end, i32, gene_start.shape),
+            (grid_b, b8, (3, B, 2, KB1, KB1)), (tlen_g, i32, (B, 2, KB1, KB1)),
+            (valid, b8, (2, B, 2, KB1)), (slot_i, i32, (4, B, 2, P)),
+            (slot_b, b8, (5, B, 2, P)), (n_union, i32, (B, 2)),
+            (mate_i, i32, (2, len(MATE_INT), B, 2, P)),
+            (mate_b, b8, (2, len(SF_BOOL), B, 2, P)), (defer_out, i32, (B,))]
+
+
+def _pair_grid_plain(sf_i, sf_b, rp4, qp4, cn4, lens4, defer, iv_tids,
+                     iv_ntid, iv_nseg_true, iv_nseg, seg_gene_p, gene_start,
+                     gene_end, *, k, P, SEG_PAD):
+    """The plain version of ``pair_grid``: the reference's grid, rank,
+    ``grid_at``, ``side_fields``, ``_is_left_chain`` and ``sel``, then the
+    outputs stacked as the kernel writes them."""
+    B, _, KB1, _ = rp4.shape
+    dev = rp4.device
+    P_MAX = P
+    NIV = iv_tids.shape[0]
+    ad = SimpleNamespace(iv_nseg=iv_nseg)
+    fa = SimpleNamespace(iv_tids=iv_tids, seg_gene_p=seg_gene_p,
+                         gene_start=gene_start, gene_end=gene_end)
+
+    def st(name):
+        return sf_i[..., SF_INT.index(name)]
     frows, vrows = _mate_rows(dev)
     # grid tensors [B, 2, KB1, KB1] (i = fwd chain, j = rev chain)
     kb = torch.arange(KB1, device=dev)
     fvalid = kb[None, None, :, None] < cn4[:, frows][..., None, None]
     rvalid = kb[None, None, None, :] < cn4[:, vrows][..., None, None]
     grid = (B, 2, KB1, KB1)
-    fs = st["r0"][:, frows][..., :, None].expand(grid)
-    rs = st["r0"][:, vrows][..., None, :].expand(grid)
-    fe = (st["lastr"] + k)[:, frows][..., :, None].expand(grid)
-    re_ = (st["lastr"] + k)[:, vrows][..., None, :].expand(grid)
+    fs = st("r0")[:, frows][..., :, None].expand(grid)
+    rs = st("r0")[:, vrows][..., None, :].expand(grid)
+    fe = (st("lastr") + k)[:, frows][..., :, None].expand(grid)
+    re_ = (st("lastr") + k)[:, vrows][..., None, :].expand(grid)
     tlen_g = torch.where(fs < rs, re_ - fs, fe - rs)
-    f_iv = st["iv_l"][:, frows][..., :, None].expand(grid)
-    r_iv = st["iv_l"][:, vrows][..., None, :].expand(grid)
+    f_iv = st("iv_l")[:, frows][..., :, None].expand(grid)
+    r_iv = st("iv_l")[:, vrows][..., None, :].expand(grid)
     gv = fvalid & rvalid
     same_tr = gv & _tids_intersect(fa, f_iv, r_iv)
     sgf = gv & _same_gene_span(ad, fa, f_iv, rs, re_)
     sgr = gv & _same_gene_span(ad, fa, r_iv, fs, fe)
     union = gv & (same_tr | sgf | sgr | (tlen_g <= MAXDISCRDTLEN))
     # annotation padding overflows on pair-relevant intervals -> defer
-    ST_PAD, SEG_PAD = fa.iv_tids.shape[1], ad.seg_end.shape[1]
+    ST_PAD = iv_tids.shape[1]
 
     def pad_over(iv):
         c = torch.clamp(iv, 0, NIV - 1).long()
-        return (iv >= 0) & ((fa.iv_ntid[c] > ST_PAD)
-                            | (fa.iv_nseg_true[c] > SEG_PAD))
+        return (iv >= 0) & ((iv_ntid[c] > ST_PAD)
+                            | (iv_nseg_true[c] > SEG_PAD))
     over_anno = union & (pad_over(f_iv) | pad_over(r_iv))
     defer = defer | DEF_PANNO * over_anno.reshape(B, -1).any(dim=1).to(_i32)
 
@@ -1091,41 +1173,86 @@ def _phase2(st, ad, fa, seqs, genome, *, k, max_ed, max_sc, band, P_MAX,
     p_fiv = grid_at(f_iv)
     p_riv = grid_at(r_iv)
 
-    # every per-chain field in one [B, 4, KB1, F] stack: the per-pair
-    # selection is one gather per mate
-    sf_stack = torch.stack(
-        [st[name].to(_i32) for name in SF_NAMES]
-        + [st["side_dp"](side, var)[f] for side, var, f in SF_DP], dim=-1)
-
     def side_fields(idx, rows):
-        g = _along(sf_stack[:, rows], idx, 2)             # [B, 2, P, F]
-        out = {}
-        for fi, name in enumerate(SF_NAMES):
-            v = g[..., fi]
-            out[name] = (v != 0) if name in SF_BOOL else v
-        for fi, (side, var, f) in enumerate(SF_DP):
-            out[f"dp{side}{var}_{f}"] = g[..., len(SF_NAMES) + fi]
-        out["seq_len"] = st["lens4"][:, rows][..., None].expand(B, 2, P_MAX)
+        g = _along(sf_i[:, rows], idx, 2)                 # [B, 2, P, F]
+        gb = _along(sf_b[:, rows], idx, 2)
+        out = {name: g[..., fi] for fi, name in enumerate(MATE_INT[:-2])}
+        out.update((name, gb[..., fi]) for fi, name in enumerate(SF_BOOL))
+        out["seq_len"] = lens4[:, rows][..., None].expand(B, 2, P_MAX)
         # absolute seqs row of this mate (walk-engine query windows)
         out["arow"] = (torch.arange(B, dtype=_i32, device=dev)[:, None, None]
                        * 4 + rows.to(_i32)[None, :, None]).expand(
             B, 2, P_MAX)
         return out
-
-    if upto == "p2_grid":
-        return dict(union=union, same_tr=same_tr, sgf=sgf, sgr=sgr,
-                    tlen_g=tlen_g, pvalid=pvalid, pcell=pcell, defer=defer)
     fm = side_fields(pi, frows)   # fwd mate  [B, 2, P]
     vm = side_fields(pj, vrows)   # rev mate
 
     # is_left_chain on the pair's chains (fwd vs rev), fwd read length
-    fwd_left = is_left_chain(rp4, qp4, st["clen"], st["lens4"], pi, pj, k=k)
+    fwd_left = _is_left_chain_plain(rp4, qp4, st("clen"), lens4, pi, pj, k=k)
 
     def sel(c, a, b):
         return {kk: torch.where(c, a[kk], b[kk]) for kk in a}
 
     lm_c = sel(fwd_left, fm, vm)   # l-mate chain bundle
     rm_c = sel(fwd_left, vm, fm)
+    mates = (lm_c, rm_c)
+    return PairGrid(
+        torch.stack([same_tr, sgf, sgr]), tlen_g,
+        torch.stack([fvalid[..., 0], rvalid[..., 0, :]]),
+        torch.stack([pcell, p_tlen, p_fiv, p_riv]),
+        torch.stack([pvalid, p_same_tr, p_sgf, p_sgr, fwd_left]), n_union,
+        torch.stack([torch.stack([m[n] for n in MATE_INT]) for m in mates]),
+        torch.stack([torch.stack([m[n] for n in SF_BOOL]) for m in mates]),
+        defer)
+
+
+def pair_grid_operands(st, ad, fa):
+    """``pair_grid``'s tensors from phase 1's staging dict and the
+    annotation: the chains' int fields and DP fields stacked in SF_INT,
+    SF_DP order, their flags in SF_BOOL order, the fragments, counts,
+    read lengths and defer words, and the annotation's tables."""
+    B, KB1 = st["B"], st["KB1"]
+    sf_i = torch.cat([torch.stack([st[name] for name in SF_INT], dim=-1),
+                      torch.stack(st["dp"], dim=-1).reshape(B, 4, KB1, -1)],
+                     dim=-1)
+    sf_b = torch.stack([st[name] for name in SF_BOOL], dim=-1)
+    return (sf_i, sf_b, st["rp4"], st["qp4"], st["cn4"], st["lens4"],
+            st["defer"], fa.iv_tids, fa.iv_ntid, fa.iv_nseg_true, ad.iv_nseg,
+            fa.seg_gene_p, fa.gene_start, fa.gene_end)
+
+
+def _phase2(st, ad, fa, seqs, genome, *, k, max_ed, max_sc, band, P_MAX,
+            KB, mat, mis, ind, xd, EW, KSCAN, WPP, MIDP, ENDP,
+            upto="full"):
+    """Pair-union table + pair-level paired extension (filter.cpp:485-551
+    + extend.cpp:37-125) over [B, 2, P_MAX].  Multi-exon extension walks
+    run through the walk engine (ops/device_walk.py).  upto in ("p2_grid",
+    "p2_gath", "p2_walk", "p2_ext") returns the reference's state at that
+    cut point instead."""
+    from .device_walk import walk_fold_rows, walk_waves
+
+    B = st["B"]
+    dev = seqs.device
+    NIV, SEG_PAD = ad.iv_spos.shape[0], ad.seg_end.shape[1]
+
+    # the pair grid, its slots, the chain order and the l/r-mate bundles
+    # (the reference's :875-1000) in one kernel
+    pg = pair_grid(*pair_grid_operands(st, ad, fa), k=k, P=P_MAX,
+                   SEG_PAD=SEG_PAD)
+    same_tr, sgf, sgr = pg.grid_b.unbind(0)
+    tlen_g, n_union, defer = pg.tlen_g, pg.n_union, pg.defer
+    fvalid, rvalid = pg.valid.unbind(0)
+    fvalid, rvalid = fvalid[..., None], rvalid[..., None, :]
+    pcell, p_tlen, p_fiv, p_riv = pg.slot_i.unbind(0)
+    pvalid, p_same_tr, p_sgf, p_sgr, fwd_left = pg.slot_b.unbind(0)
+    if upto == "p2_grid":
+        union = fvalid & rvalid & (same_tr | sgf | sgr
+                                   | (tlen_g <= MAXDISCRDTLEN))
+        return dict(union=union, same_tr=same_tr, sgf=sgf, sgr=sgr,
+                    tlen_g=tlen_g, pvalid=pvalid, pcell=pcell, defer=defer)
+    lm_c, rm_c = ({**dict(zip(MATE_INT, mi.unbind(0))),
+                   **dict(zip(SF_BOOL, mb.unbind(0)))}
+                  for mi, mb in zip(pg.mate_i.unbind(0), pg.mate_b.unbind(0)))
 
     # extend_both_mates (extend.cpp:37-125)
     l_mid, r_mid = lm_c["mid_dp"], rm_c["mid_dp"]
@@ -1133,9 +1260,11 @@ def _phase2(st, ad, fa, seqs, genome, *, k, max_ed, max_sc, band, P_MAX,
     has_tids = p_same_tr
 
     if upto == "p2_gath":
+        # the forward and reverse mates, from the l/r-mate bundles
         out = dict(defer=defer, fwd_left=fwd_left)
         for kk in ("r0", "q0", "mid_dp", "clen", "dp00_ed", "dp11_score"):
-            out["f_" + kk], out["v_" + kk] = fm[kk], vm[kk]
+            out["f_" + kk] = torch.where(fwd_left, lm_c[kk], rm_c[kk])
+            out["v_" + kk] = torch.where(fwd_left, rm_c[kk], lm_c[kk])
         return out
 
     # ---- the walk engine: speculative multi-exon walks (extend families

@@ -1,6 +1,7 @@
 """Phase 2's extend kernels of csrc/extend.cu on the CPU: ``extend_core``
-(phase 2's four extend families), ``extend_leftover`` (the leftover
-chain-level extends, the same wrap-up) and ``is_left_chain``; and the
+(phase 2's four extend families) and ``extend_leftover`` (the leftover
+chain-level extends, the same wrap-up); the chain-order walk
+``_is_left_chain``, which csrc/pair_grid.cu runs per pair slot; and the
 interval bisect ``_bisect_le``, now one searchsorted.
 
 - The port's plain ``_extend_core`` (left and right, without and with the
@@ -12,20 +13,20 @@ interval bisect ``_bisect_le``, now one searchsorted.
   made with numpy from a seed (``chip_smoke``'s generators, the kernels'
   adversarial sweep); the wrappers' plain versions against the
   reference's compositions (run_side, the leftover pair of calls, the
-  gathers before its is_left_chain).
+  gathers before its _is_left_chain).
 - The arrays both callers bisect (``AnnoDevice.iv_spos``,
   ``FinishAnnoDevice.shift_bounds``) are non-decreasing on a genome of
   three chromosomes packed into one contig.
 - A scalar transcription of each kernel's per-thread code (its loads
-  included) against the plain versions, with counts that show every
-  branch taken.
-- Each ``*_args`` list against the C signature parsed from
-  csrc/extend.cu, and the source's constants against the Python ones.
+  included; pair_grid's slot thread's walk on its staged chains) against
+  the plain versions, with counts that show every branch taken.
+- Each ``*_args`` list (pair_grid's too) against the C signature parsed
+  from its source, and the sources' constants against the Python ones.
 - The card path on CPU tensors that report ``is_cuda``: one launch a call,
   the inputs handed over in place.
-- ``cuda``-marked (skipped without a card): each kernel bit-equal to its
-  plain version over chip_smoke's EXTEND_SWEEP, eagerly and replayed from
-  a captured CUDA graph.
+- ``cuda``-marked (skipped without a card): each extend kernel bit-equal
+  to its plain version over chip_smoke's EXTEND_SWEEP, eagerly and
+  replayed from a captured CUDA graph (pair_grid's: test_torch_pairgrid).
 
 Every output is an integer: every comparison is exact (tolerance 0)."""
 
@@ -39,9 +40,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (EXTEND_SWEEP, I32MAX, c_params, extend_case,
-                        extend_core_inputs, extend_leftover_inputs,
-                        is_left_chain_inputs, tensor_kernel_calls)
+from chip_smoke import (EXTEND_SWEEP, I32MAX, PAIR_SWEEP, c_params,
+                        extend_case, extend_core_inputs,
+                        extend_leftover_inputs, is_left_chain_inputs,
+                        pair_case, tensor_kernel_calls)
 from circminer_tpu.ops import device_full as jfull
 from circminer_tpu_torch.config import INF
 from circminer_tpu_torch.ops import _ext
@@ -50,6 +52,7 @@ from circminer_tpu_torch.ops.device_walk import FOLD_OUT, KEYS
 
 NEG_SCORE = tfull.NEG_SCORE
 SRC = f"{_ext._CSRC}/extend.cu"
+PAIR_SRC = f"{_ext._CSRC}/pair_grid.cu"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -234,11 +237,11 @@ def _jax_is_left(arrays, k):
 def test_plain_is_left_chain_matches_jax(NL):
     """Chain lengths 0 to NL, chains separated, touching, sharing an end
     base and interleaved, ends that wrap past I32MAX; the port's
-    _is_left_chain and its wrapper's plain version."""
+    _is_left_chain on the slots' gathered chains."""
     for k in (20, 3):
         arrays, kw = is_left_chain_inputs(np.random.default_rng(NL + k),
                                           48, 7, NL, 8, k=k)
-        got = tfull.is_left_chain(*_torch(arrays), **kw)
+        got = tfull._is_left_chain_plain(*_torch(arrays), **kw)
         _same(got.numpy(), _jax_is_left(arrays, k), f"NL={NL} k={k}")
         assert got.any() and (~got).any()
 
@@ -544,25 +547,28 @@ def test_extend_leftover_thread_code_matches_plain():
 
 
 def is_left_thread(rp4, qp4, clen4, lens4, pi, pj, t, k, seen):
-    """is_left_chain_kernel's thread t: the slot's chains through
-    _mate_rows' rows, the merge walk that stops when done, the overlap
-    test."""
+    """pair_grid_kernel's slot thread t (csrc/pair_grid.cu's is_left): the
+    read's [4, KB1, NL] fragments staged once, the slot's two chains
+    through _mate_rows' rows, a separated pair answered from its ends, the
+    merge walk that stops when done, the overlap test."""
     B, _, KB1, NL = rp4.shape
     P = pi.shape[2]
     b, o, p = t // (2 * P), (t // P) % 2, t % P
     fr, vr = 2 * o, 3 - 2 * o
-    ca = (b, fr, min(max(int(pi[b, o, p]), 0), KB1 - 1))
-    cb = (b, vr, min(max(int(pj[b, o, p]), 0), KB1 - 1))
-    A, Bf = rp4[ca].tolist(), rp4[cb].tolist()
-    a_len, b_len = int(clen4[ca]), int(clen4[cb])
+    rp, qp = rp4[b].tolist(), qp4[b].tolist()      # the staged read
+    fi = min(max(int(pi[b, o, p]), 0), KB1 - 1)
+    vj = min(max(int(pj[b, o, p]), 0), KB1 - 1)
+    A, Bf, QA, QB = rp[fr][fi], rp[vr][vj], qp[fr][fi], qp[vr][vj]
+    a_len, b_len = int(clen4[b, fr, fi]), int(clen4[b, vr, vj])
     read_len = int(lens4[b, fr])
 
     def at(v, i):
         return v[min(max(i, 0), NL - 1)]
     a_end = w32(at(A, w32(a_len - 1)) + k - 1)
     b_end = w32(at(Bf, w32(b_len - 1)) + k - 1)
-    separated = Bf[0] > a_end or A[0] > b_end
-    seen["separated"] += separated
+    if Bf[0] > a_end or A[0] > b_end:
+        seen["separated"] += 1
+        return A[0] < Bf[0]
     i = j = 0
     bd, bi, bj = INF, -1, -1
     for _ in range(2 * NL):
@@ -589,18 +595,13 @@ def is_left_thread(rp4, qp4, clen4, lens4, pi, pj, t, k, seen):
             seen["overlap"] += 1
             bi, bj = i, j
             break
-    else:
-        seen["all_steps"] += 1
     a_bp, b_bp = at(A, bi), at(Bf, bj)
     common = max(a_bp, b_bp)
-    a_ov = w32(at(qp4[ca].tolist(), bi) + w32(common - a_bp))
-    b_ov = w32(at(qp4[cb].tolist(), bj) + w32(common - b_bp))
+    a_ov = w32(at(QA, bi) + w32(common - a_bp))
+    b_ov = w32(at(QB, bj) + w32(common - b_bp))
     both_in = a_ov < read_len and b_ov < read_len and bi >= 0
-    seen["both_in"] += both_in and not separated
-    seen["not_both_in"] += not both_in and not separated
-    if separated or not both_in:
-        return A[0] < Bf[0]
-    return a_ov >= b_ov
+    seen["both_in" if both_in else "not_both_in"] += 1
+    return a_ov >= b_ov if both_in else A[0] < Bf[0]
 
 
 def test_is_left_chain_thread_code_matches_plain():
@@ -608,7 +609,7 @@ def test_is_left_chain_thread_code_matches_plain():
     for NL, k in ((1, 20), (2, 3), (6, 20), (15, 20), (17, 20), (6, 3)):
         arrays, kw = is_left_chain_inputs(np.random.default_rng(NL * k), 12,
                                           7, NL, 8, k=k)
-        want = tfull.is_left_chain(*_torch(arrays), **kw).reshape(-1)
+        want = tfull._is_left_chain_plain(*_torch(arrays), **kw).reshape(-1)
         for t in range(want.numel()):
             assert is_left_thread(*arrays, t, k, seen) == bool(want[t]), \
                 (NL, k, t)
@@ -628,35 +629,47 @@ def _args_ok(name, args):
             and x.is_contiguous(), (name, x.dtype, tuple(x.shape), shape)
 
 
-def _outs(name, args):
+# the kernels whose arguments and card path these tests hold: csrc/
+# extend.cu's and csrc/pair_grid.cu's, by their sweeps' cases
+SWEEPS = {**EXTEND_SWEEP, **PAIR_SWEEP}
+
+
+def _case(name, k, seed):
+    case = pair_case if name in PAIR_SWEEP else extend_case
+    return case(name, SWEEPS[name][k], "cpu", seed)
+
+
+def _outs(name, args, kw):
     """Fresh outputs of the wrapper ``name`` for these inputs."""
+    if name == "pair_grid":
+        return tuple(torch.zeros_like(x)
+                     for x in tfull.pair_grid(*args, **kw))
     if name == "extend_core":
         shp = args[0].shape
         return (torch.zeros(shp, dtype=torch.bool),
                 torch.zeros(shp, dtype=torch.int32),
                 torch.zeros((len(KEYS), *shp), dtype=torch.int32),
                 torch.zeros(shp, dtype=torch.bool))
-    if name == "extend_leftover":
-        shp = args[2].shape
-        return (torch.zeros((2, *shp), dtype=torch.bool),
-                torch.zeros((2, *shp), dtype=torch.int32),
-                torch.zeros((2, len(KEYS), *shp), dtype=torch.int32))
-    return (torch.zeros(args[4].shape, dtype=torch.bool),)
+    shp = args[2].shape
+    return (torch.zeros((2, *shp), dtype=torch.bool),
+            torch.zeros((2, *shp), dtype=torch.int32),
+            torch.zeros((2, len(KEYS), *shp), dtype=torch.int32))
 
 
 ARGS_OF = {"extend_core": tfull.extend_core_args,
            "extend_leftover": tfull.extend_leftover_args,
-           "is_left_chain": tfull.is_left_chain_args}
+           "pair_grid": tfull.pair_grid_args}
 
 
-@pytest.mark.parametrize("name", list(EXTEND_SWEEP))
+@pytest.mark.parametrize("name", list(SWEEPS))
 def test_kernel_args_follow_the_c_signatures(name):
     """Each *_args list takes the spec's tensors, and each C entry point
     the spec's tensors, then its statics, then the stream."""
-    args, _ = extend_case(name, EXTEND_SWEEP[name][1], "cpu", 0)
-    _args_ok(name, ARGS_OF[name](*args, *_outs(name, args)))
+    args, kw = _case(name, 1, 0)
+    _args_ok(name, ARGS_OF[name](*args, *_outs(name, args, kw)))
     spec = _ext.KERNELS[name]
-    assert c_params(SRC)[spec.sym] == [*spec.tensors, *spec.statics,
+    src = PAIR_SRC if name == "pair_grid" else SRC
+    assert c_params(src)[spec.sym] == [*spec.tensors, *spec.statics,
                                        "stream"]
 
 
@@ -666,10 +679,10 @@ def test_source_constants_follow_the_python_ones():
     rows = [w.strip() for w in body.split(",")]
     assert rows == ["FD_" + r.upper() for r in FOLD_OUT] + ["FD_ROWS"]
     assert f"constexpr int32_t NEG_SCORE = {NEG_SCORE};" in src
-    assert f"constexpr int32_t INF = {INF};" in src
+    assert f"constexpr int32_t INF = {INF};" in open(PAIR_SRC).read()
     assert f"constexpr int32_t I32MAX = {I32MAX};" in src
     # each C entry point its own __global__ kernel and launch count
-    for name in ("extend_core", "extend_leftover", "is_left_chain"):
+    for name in EXTEND_SWEEP:
         assert re.search(rf"__global__ void __launch_bounds__\(EXT_THREADS\)"
                          rf"\s+{name}_kernel\(", src), name
         assert name in _ext.LAUNCHES
@@ -682,7 +695,7 @@ class _Cuda(torch.Tensor):
         return True
 
 
-@pytest.mark.parametrize("name", list(EXTEND_SWEEP))
+@pytest.mark.parametrize("name", list(SWEEPS))
 def test_card_path_is_one_launch_on_the_inputs_in_place(name, monkeypatch):
     """On a CUDA tensor each wrapper launches its kernel once, handing it
     every input as it is (the same storage: nothing is copied or
@@ -694,9 +707,8 @@ def test_card_path_is_one_launch_on_the_inputs_in_place(name, monkeypatch):
         launched.append((kname, [x.data_ptr() for x, _, _ in args],
                          tuple(statics)))
     monkeypatch.setattr(_ext, "launch_tensors", launch)
-    args, kw = extend_case(name, EXTEND_SWEEP[name][0], "cpu", 1)
-    lead = 4 if name == "is_left_chain" else (2 if name == "extend_leftover"
-                                              else 0)
+    args, kw = _case(name, 0, 1)
+    lead = 2 if name == "extend_leftover" else 0
     call = [a.as_subclass(_Cuda) if i == lead else a
             for i, a in enumerate(args)]
     kern, _ = tensor_kernel_calls(name, call, kw)
@@ -715,8 +727,12 @@ def test_card_path_is_one_launch_on_the_inputs_in_place(name, monkeypatch):
         assert statics == (args[2].numel(), args[0].shape[-1],
                            kw["max_ed"], kw["max_sc"], kw["band"])
     else:
-        B, _, KB1, NL = args[0].shape
-        assert statics == (B, KB1, NL, args[4].shape[2], kw["k"])
+        B, _, KB1, NL = args[2].shape
+        NIV, ST = args[7].shape
+        assert statics == (B, KB1, NL, kw["P"], kw["k"], NIV, ST,
+                           args[11].shape[1], kw["SEG_PAD"],
+                           args[12].shape[0])
+        assert out.mate_i.shape == (2, len(tfull.MATE_INT), B, 2, kw["P"])
 
 
 # --------------------------------------------------------------------------

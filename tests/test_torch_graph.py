@@ -70,7 +70,7 @@ PER_STEP = {"xdrop": 5, "edit_end": 4, "one_side": 1, "edit_sc": 0,
             "chain_dp": 1, "mr_pair_fold": 2, "walk_fold": 4, "walk_scan": 4,
             "tiny_dp": 5, "chain_cells": 1, "extract_kbest": 1,
             "walk_init": 1, "walk_pool": 4, "walk_commit": 4,
-            "extend_core": 4, "extend_leftover": 1, "is_left_chain": 1}
+            "extend_core": 4, "extend_leftover": 1, "pair_grid": 1}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -281,11 +281,23 @@ def _stubs(calls):
                                                    *out))
         return out
 
-    def is_left_chain(rp4, qp4, clen4, lens4, pi, pj, **kw):
-        calls["is_left_chain"] += 1
-        out = torch.zeros(pi.shape, dtype=torch.bool)
-        _kernel_args_ok(tfull.is_left_chain_args(rp4, qp4, clen4, lens4, pi,
-                                                 pj, out))
+    def pair_grid(sf_i, sf_b, rp4, qp4, *args, P, **kw):
+        calls["pair_grid"] += 1
+        B, _, KB1, _ = rp4.shape
+        i32, b8 = torch.int32, torch.bool
+        out = tfull.PairGrid(
+            torch.zeros((3, B, 2, KB1, KB1), dtype=b8),
+            torch.zeros((B, 2, KB1, KB1), dtype=i32),
+            torch.zeros((2, B, 2, KB1), dtype=b8),
+            torch.zeros((4, B, 2, P), dtype=i32),
+            torch.zeros((5, B, 2, P), dtype=b8),
+            torch.zeros((B, 2), dtype=i32),
+            torch.zeros((2, len(tfull.MATE_INT), B, 2, P), dtype=i32),
+            torch.zeros((2, len(tfull.SF_BOOL), B, 2, P), dtype=b8),
+            torch.zeros((B,), dtype=i32))
+        pg_args = tfull.pair_grid_args(sf_i, sf_b, rp4, qp4, *args, *out)
+        assert len(pg_args) == len(_ext.KERNELS["pair_grid"].tensors)
+        _kernel_args_ok(pg_args)
         return out
 
     return {
@@ -306,7 +318,7 @@ def _stubs(calls):
         (tfull, "tiny_dp"): tiny_dp,
         (tfull, "extend_core"): extend_core,
         (tfull, "extend_leftover"): extend_leftover,
-        (tfull, "is_left_chain"): is_left_chain,
+        (tfull, "pair_grid"): pair_grid,
     }
 
 
@@ -339,8 +351,10 @@ def test_fused_step_never_waits_for_the_device(world, monkeypatch):
     (chain_dp), 1 (extract_kbest), 2 (mr_pair_fold), 4 (walk_fold), 4
     (walk_scan), 5 (tiny_dp), 1 (walk_init), 4 (walk_pool), 4
     (walk_commit), 4 (extend_core), 1 (extend_leftover) and 1
-    (is_left_chain) times.
-    The step dispatches 2,648 aten ops with the kernels stubbed: 5,122
+    (pair_grid) times.
+    The step dispatches 2,136 aten ops with the kernels stubbed, 282 of
+    them in cm.phase2 outside its nested spans: 2,648 before pair_grid
+    took phase 2's pair grid, slots, chain order and mate bundles, 5,122
     before extend_core, extend_leftover, is_left_chain and the one-op
     interval bisect, 5,127 while walk_init and walk_pool each allocated a
     device workspace of tile counts, 6,849 before walk_init, walk_pool and
@@ -357,7 +371,8 @@ def test_fused_step_never_waits_for_the_device(world, monkeypatch):
     print(f"device_full_step at B = {BATCH}, kernels stubbed: {total} aten "
           f"ops per step; top {audit.ops.most_common(5)}; by innermost "
           f"span {audit.by_span.most_common()}")
-    assert total == 2_648
+    assert total == 2_136
+    assert audit.by_span["cm.phase2"] == 282, audit.by_span
 
 
 def test_walk_scan_and_fold_are_one_kernel_each(world, monkeypatch):
