@@ -13,7 +13,10 @@ finished here with results bit-identical to the host pipeline; every other
 row raises a DEFER cause bit (``DEFER_CAUSES``) and is replayed through the
 host C++ path, so the output is always exact.  The budgets, the defer bits
 and the int32 arithmetic are the reference's, so the port finishes and
-defers exactly the reads the reference does.
+defers exactly the reads the reference does, with one exception: the DP
+pools gather windows of ``I - 1`` bases, and the reference cuts a longer
+row to that (a 150-bp read can end one base short); the port defers the
+read instead (``DEF_EXTENT``).
 
 Extension DPs are compacted: every potential DP site (middle-gap one-sided
 DPs, per-chain end / genomic X-drop DPs) is a fixed slot; active slots are
@@ -68,10 +71,11 @@ DEF_MMANNO = 1 << 8     # annotation padding overflow on final coords
 DEF_SCTIE = 1 << 9      # orientation score tie (f64 hazard)
 DEF_TLENWALK = 1 << 10  # calc_tlen walk > W_MAX intervals
 DEF_CTPOOL = 1 << 11    # calc_tlen pool overflow
+DEF_EXTENT = 1 << 12    # a DP row longer than the pools' windows (I - 1)
 
 DEFER_CAUSES = ["occ", "extract", "nchain", "ospool", "xdpool", "panno",
                 "union", "extwalk", "mmanno", "sctie", "tlenwalk",
-                "ctpool"]
+                "ctpool", "extent"]
 
 MR_KEYS = ("type", "spos_r1", "epos_r1", "qspos_r1", "qepos_r1", "mlen_r1",
            "ed_r1", "r1_fwd", "spos_r2", "epos_r2", "qspos_r2", "qepos_r2",
@@ -835,6 +839,15 @@ def _phase1(seqs, lens, hh, rp, qp, cl, sc10, cn, inc, mr_in,
     mid_dp = torch.where(exceeded, max_ed + 1,
                          torch.clamp(csum[..., -1], max=max_ed + 1))
     mid_dp = torch.where(clen > 0, mid_dp, 0)     # chain_len == 0 -> 0
+
+    # a DP row past the pools' windows of I - 1 bases would be cut: a
+    # needed gap's query or reference, or a chain end's reference of
+    # remain + band bases (its genomic X-drop row, and the bound of every
+    # walk row from that end)
+    long_row = (g_need & (torch.maximum(gqlen, grlen) > I - 1)).any(dim=-1) \
+        | (valid & (torch.maximum(remain_beg, remain_end) > I - 1 - band))
+    defer = torch.where(long_row.reshape(B, -1).any(dim=1),
+                        defer | DEF_EXTENT, defer)
 
     # ---- end/genomic X-drop pool (extend.py:556-623 + wrappers) ------
     # slots [B,4,KB1,2(side: 0=left 1=right),2(var: 0=genomic 1=walk)]

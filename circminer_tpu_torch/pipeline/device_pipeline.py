@@ -471,12 +471,15 @@ class DeviceMappingPipeline:
             blob = from_host(cf["full"])              # [B, MRF+1] int32
         dbits = blob[:n, -1]
         defer = dbits != 0
-        # per-cause histogram (a read may carry several cause bits)
-        causes = self.full_stats["causes"]
+        # per-cause histogram (a read may carry several cause bits), a new
+        # dict each batch: a copy of full_stats taken by dict() keeps the
+        # counts of its time
+        causes = dict(self.full_stats["causes"])
         for i, name in enumerate(DEFER_CAUSES):
             c = int(((dbits >> i) & 1).sum())
             if c:
                 causes[name] = causes.get(name, 0) + c
+        self.full_stats["causes"] = causes
         mr_state = blob[:n, :-1].astype(np.int64)
         with T.phase("full_writeback"):
             for i, (r1, _) in enumerate(recs):

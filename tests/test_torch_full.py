@@ -4,12 +4,16 @@ int32 [B, MRF + 1] blob of ``device_full_step`` (defer bits included), the
 seg_compact switch, and the gpu-full executor against native.
 
 The library is tests/test_device_full.py's (80 kbp, 4 genes, linear +
-circular + junk pairs) at both of its error rates.  Every output is an
+circular + junk pairs) at both of its error rates, and for the executor a
+third, ``pe150``: 2 x 150 bp reads at ``max_read_len`` 300 on the gene
+window of the read that the reference's step ends one base short
+(``case_window``; tests/test_torch_pe150.py).  Every output is an
 integer, so every comparison is exact (tolerance 0).  The DP pools are
 shrunk from the pipeline's sizes, identically for both packages, so the
 plain torch DP versions stay quick on the CPU."""
 
 import copy
+import functools
 
 import numpy as np
 import jax
@@ -78,12 +82,73 @@ def _library(tmp, err):
     return cfg, gi, db, reads + junk
 
 
+# the 150-bp case: read pair 5545 (s0_L21106, linear read 21106) of library
+# 0 of seed 3000000013 in cmbench's chr21_pe150_l300.total, drawn from the
+# configuration's chr21-scale genome; its r1 lies on gene 548 (index 547),
+# where the native path ends it at 32,822,873
+CASE_GENOME = dict(seed=20260817, length=47_000_000, n_genes=783,
+                   dup_frac=0.05)
+CASE_READS = dict(seed=3000000013, library=0, linear=21106, read_len=150,
+                  frag_len=(200, 500), err_rate=0.005)
+CASE_GENE, CASE_EPOS_R1 = 547, 32_822_873
+PE150 = "pe150"
+
+
+@functools.lru_cache(maxsize=1)
+def case_window(pad=2000):
+    """The case's gene cut from the chr21-scale genome with ``pad`` bases
+    on each side, as a genome of its own (coordinates less ``off``), and
+    the case's read: (genome, read, off)."""
+    import dataclasses
+    from circminer_tpu.sim import SimGenome, SimTranscript
+    c = CASE_GENOME
+    g = make_genome(np.random.default_rng(c["seed"]), length=c["length"],
+                    n_genes=c["n_genes"], dup_frac=c["dup_frac"])
+    gene = g.genes[CASE_GENE]
+    assert gene.start <= CASE_EPOS_R1 <= gene.end
+    r = CASE_READS
+    # the library's linear reads come first, in the order drawn
+    reads, _ = simulate_reads(
+        np.random.default_rng([r["seed"], r["library"]]), g,
+        r["linear"] + 1, 0, read_len=r["read_len"], frag_len=r["frag_len"],
+        err_rate=r["err_rate"], name_prefix=f"s{r['library']}_")
+    read = reads[-1]
+    assert read.name == f"s0_L{r['linear']}"
+    off = gene.start - pad - 1
+    cut = dataclasses.replace(gene, start=gene.start - off,
+                              end=gene.end - off, transcripts=[
+        SimTranscript(t.tid, t.gene, [(a - off, b - off) for a, b in t.exons])
+        for t in gene.transcripts])
+    return SimGenome(g.chrom, g.seq[off:gene.end + pad], [cut]), read, off
+
+
+def _pe150_library(tmp):
+    """2 x 150 bp pairs at max_read_len 300 drawn from the case's gene
+    window (linear, circular and junk), the case's pair last."""
+    g, case, _ = case_window()
+    ref, gtf = str(tmp / "ref.fa"), str(tmp / "ref.gtf")
+    g.write_fasta(ref)
+    g.write_gtf(gtf)
+    cfg = Config(kmer=20, max_read_len=300)
+    contigs, info = GenomePacker(ref).pack_genome()
+    gi = build_genome_index(contigs, cfg)
+    db = AnnotationDB.from_gtf(gtf, info, 1, cfg,
+                               contig_lengths=[len(c) for c in contigs])
+    rng = np.random.default_rng(150)
+    reads, _ = simulate_reads(rng, g, 72, 16, read_len=150,
+                              frag_len=(200, 500), err_rate=0.01)
+    junk = [type(case)(f"junk{i}", "".join(rng.choice(list("ACGT"), 150)),
+                       case.r2, None, None) for i in range(4)]
+    return cfg, gi, db, reads + junk + [case]
+
+
 class World:
     """One library, one batch of its pairs, and the same statics and inputs
     for both packages."""
 
     def __init__(self, tmp, err):
-        cfg, gi, db, reads = _library(tmp, err)
+        cfg, gi, db, reads = (_pe150_library(tmp) if err == PE150
+                              else _library(tmp, err))
         self.cfg, self.gi, self.db, self.reads = cfg, gi, db, reads
         jp = JaxPipeline(db, gi, cfg, batch_size=BATCH,
                          chain_exec="device-full")
@@ -340,7 +405,10 @@ def test_device_full_step_defer_bits_match_jax(world):
     causes = {name for i, name in enumerate(tfull.DEFER_CAUSES)
               if ((want[:, -1] >> i) & 1).any()}
     assert "extwalk" in causes and (want[:, -1] != 0).sum() >= 8, causes
-    assert tfull.DEFER_CAUSES == jfull.DEFER_CAUSES
+    # the reference's causes, and the port's own last: a DP row longer
+    # than the pools' windows (tests/test_torch_pe150.py)
+    assert tfull.DEFER_CAUSES[:-1] == jfull.DEFER_CAUSES
+    assert tfull.DEFER_CAUSES[-1] == "extent"
 
 
 def test_seg_compact_reaches_the_prelude(world, jax_blob, monkeypatch):
@@ -415,7 +483,12 @@ def map_fields(pipe, reads, cfg):
     return [tuple(getattr(p[0].mr, f) for f in FIELDS) for p in pairs]
 
 
+@pytest.mark.parametrize("world", [0.0, 0.01, PE150],
+                         ids=["err0", "err1", PE150], indirect=True)
 def test_gpu_full_pipeline_matches_native(world):
+    """Every field of every pair, the executor against native: 100-bp
+    reads at both error rates, and 2 x 150 bp reads at max_read_len 300,
+    of which the fused step defers some (the case's pair among them)."""
     cfg, gi, db, reads = world.cfg, world.gi, world.db, world.reads
     full = small_pools(DeviceMappingPipeline(
         db, gi, port_config(cfg), batch_size=BATCH, chain_exec="device-full",
@@ -429,3 +502,5 @@ def test_gpu_full_pipeline_matches_native(world):
     fs = full.full_stats
     assert fs["reads"] == len(reads)
     assert fs["deferred"] < 0.5 * fs["reads"], fs
+    # 100-bp reads need no DP row past the pools' windows; the case does
+    assert (fs["causes"].get("extent", 0) > 0) == (cfg.max_read_len > 100)

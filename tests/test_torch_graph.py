@@ -352,8 +352,10 @@ def test_fused_step_never_waits_for_the_device(world, monkeypatch):
     (walk_scan), 5 (tiny_dp), 1 (walk_init), 4 (walk_pool), 4
     (walk_commit), 4 (extend_core), 1 (extend_leftover) and 1
     (pair_grid) times.
-    The step dispatches 2,136 aten ops with the kernels stubbed, 282 of
-    them in cm.phase2 outside its nested spans: 2,648 before pair_grid
+    The step dispatches 2,148 aten ops with the kernels stubbed, 282 of
+    them in cm.phase2 outside its nested spans: 2,136 before phase 1's
+    rule that defers a read with a DP row past the pools' windows (the
+    cause ``extent``), 2,648 before pair_grid
     took phase 2's pair grid, slots, chain order and mate bundles, 5,122
     before extend_core, extend_leftover, is_left_chain and the one-op
     interval bisect, 5,127 while walk_init and walk_pool each allocated a
@@ -371,7 +373,7 @@ def test_fused_step_never_waits_for_the_device(world, monkeypatch):
     print(f"device_full_step at B = {BATCH}, kernels stubbed: {total} aten "
           f"ops per step; top {audit.ops.most_common(5)}; by innermost "
           f"span {audit.by_span.most_common()}")
-    assert total == 2_136
+    assert total == 2_148
     assert audit.by_span["cm.phase2"] == 282, audit.by_span
 
 

@@ -215,6 +215,41 @@ def test_a_new_reader_reads_its_spans(name, want, needs):
     assert bench_run.load_reader(name)(r) is None
 
 
+def test_the_replay_reader_reads_full_replay_per_batch():
+    """``pipeline.replay_ms_per_batch``: the host replay's ms a batch, 0.0
+    in a window that deferred no read (no ``full_replay`` phase), None in
+    a window of no batch or no read."""
+    read = bench_run.load_reader("pipeline.replay_ms_per_batch")
+    r = hand_made_run()
+    assert read(r) == 0.0
+    r["timer"]["totals"]["full_replay"] = 0.05
+    r["timer"]["counts"]["full_replay"] = 2
+    assert read(r) == pytest.approx(25.0)
+    r["full_stats"] = {"reads": 0, "deferred": 0, "causes": {}}
+    assert read(r) is None
+    r = hand_made_run()
+    r["batches"] = 0
+    assert read(r) is None
+
+
+@pytest.mark.parametrize("name,cause", [("pipeline.deferred_xdpool_pct",
+                                         "xdpool")])
+def test_a_cause_reader_reads_its_share_of_the_reads(name, cause):
+    """A deferral cause's reader: the reads that carry the cause over the
+    reads (a read may carry several), 0.0 where no read carries it, None
+    where the window mapped no read."""
+    read = bench_run.load_reader(name)
+    r = hand_made_run()
+    assert read(r) == 0.0
+    r["full_stats"] = {"reads": 128, "deferred": 40,
+                       "causes": {cause: 32, "extwalk": 12}}
+    assert read(r) == pytest.approx(25.0)
+    r["full_stats"]["causes"].pop(cause)
+    assert read(r) == 0.0
+    r["full_stats"] = {"reads": 0, "deferred": 0, "causes": {}}
+    assert read(r) is None
+
+
 def test_idle_named_pct_reads_the_program_timer(global_timer):
     """Where the run hands no spans (the harness as it is), the reader
     takes the port's GLOBAL_TIMER intervals inside the profiled window,
