@@ -31,8 +31,9 @@ fold is the ``walk_fold`` kernel.  On CPU tensors, their plain versions.
 Budget overflows (more than EW DPs per lane, scans past EW*KSCAN intervals,
 exhausted pools, more than STW = 8 common transcripts) raise the read's
 DEF_EXTWALK bit, and the read replays on the host: results are exact or
-absent.  The budgets are the reference's, so the port defers exactly where
-the reference does.
+absent.  The budgets are the caller's (the pipeline's ``_full_statics``),
+whose middle-DP pool may exceed the reference's: it then defers fewer
+reads than the reference, and finishes the others alike.
 """
 
 from __future__ import annotations

@@ -374,21 +374,30 @@ class DeviceMappingPipeline:
 
     # ---- the fused device-full executor ------------------------------
     def _full_statics(self):
-        """The fused step's static budgets: the reference's formulas, so
-        the port defers exactly the reads the reference defers."""
+        """The fused step's static budgets, fixed when the pipeline is built
+        from its batch B and row width L (``max_read_len``), never from the
+        reads of a batch (they key the step's CUDA graph).  The reference's
+        formulas, but for two budgets of the port's own, never below the
+        reference's: the X-drop pool (``XD_POOL``) a row a pair for every
+        75 bases of L, and the walk's middle-DP pool (``MIDP``) a row a pair
+        for every 400, which hold the 150-bp reads the reference's sizes
+        send to the host.  A pool that overflows defers its reads to the
+        host replay, so the results are exact under either budget; only
+        which reads replay differs."""
         cfg = self.cfg
         sm = ScoreMat()
         B = self.batch
+        L = cfg.max_read_len
         return dict(
             k=cfg.kmer, cs_len=cfg.checksum_len, n_slots=cfg.max_seg_cnt,
             seed_lim=cfg.seed_lim, cap=16, max_ed=cfg.max_ed,
             max_sc=cfg.max_sc, band=cfg.band_width, max_tlen=cfg.max_tlen,
             max_intron=cfg.max_intron, seg_pad=self.seg_pad,
             scan_level=cfg.scan_level, KB=6, P_MAX=8, W_MAX=16,
-            OS_POOL=max(2048, B), XD_POOL=max(4096, 2 * B),
+            OS_POOL=max(2048, B), XD_POOL=max(4096, B * max(2, L // 75)),
             EX_ITERS=48, mat=sm.mat, mis=sm.mis, ind=sm.ind, xd=sm.xd,
             EW=4, KSCAN=12, WPP=max(512, (3 * B) // 2),
-            MIDP=max(512, B // 8), ENDP=max(1024, B // 4),
+            MIDP=max(512, B // 8, B * L // 400), ENDP=max(1024, B // 4),
             # per-column seg tables only where an entry table is so large
             # that the padded [rows, seg_pad] temporaries would not fit
             seg_compact=max(c.entry_hv.shape[0]
@@ -415,6 +424,7 @@ class DeviceMappingPipeline:
                     mr_in[i] = NativeFilter.mr_to_state(r1.mr, nf.chr_names)
             mr_in = np.ascontiguousarray(mr_in.astype(np.int32))
         statics = self._full_statics()
+        self.full_stats["xd_pool"] = statics["XD_POOL"]
 
         def step(seqs_d, lens_d, mr_d):
             return device_full_step(

@@ -385,6 +385,27 @@ def test_device_full_step_blob_matches_jax(world, jax_blob):
     assert (jax_blob[:, -1] == 0).all()           # all finished on device
 
 
+def test_own_pool_budgets_keep_the_jax_blob(world, jax_blob):
+    """100-bp reads: the port's step under its own X-drop and middle-DP
+    budgets (the pipeline's ``_full_statics`` at the world's batch and row
+    width: 4,096 and 512 rows, where the JAX step runs SMALL_POOLS' 1,024
+    and 128) gives the JAX step's blob, defer bits included.  At these
+    shapes the port's budgets are the reference's; larger pools change no
+    read."""
+    pipe = DeviceMappingPipeline(world.db, world.gi, port_config(world.cfg),
+                                 batch_size=BATCH, chain_exec="device-full",
+                                 device="cpu")
+    sx = pipe._full_statics()
+    own = {key: sx[key] for key in ("XD_POOL", "MIDP")}
+    assert own == dict(XD_POOL=max(4096, 2 * BATCH),
+                       MIDP=max(512, BATCH // 8))
+    assert all(own[key] > SMALL_POOLS[key] for key in own)
+    got = world.torch_step(**own)
+    assert torch.equal(got, torch.from_numpy(np.array(jax_blob))), \
+        _blob_diff(got, jax_blob)
+    assert (jax_blob[:, -1] == 0).all()
+
+
 # every budget starved: the step defers, and must raise the same bits
 STARVED = dict(cap=4, KB=2, P_MAX=2, W_MAX=2, EX_ITERS=8, OS_POOL=16,
                XD_POOL=32, WPP=32, MIDP=8, ENDP=8, EW=1, KSCAN=2)
